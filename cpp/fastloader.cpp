@@ -1,8 +1,8 @@
 // Native data-loader kernels for wavenet_tpu (C++17, no external deps).
 //
-// The reference's data path is pure-Python NumPy (SURVEY.md §2 #2); at pod
-// scale the host input pipeline becomes the bottleneck long before the TPU
-// does, so the hot host-side ops live here:
+// The reference's data path is pure-Python NumPy (SURVEY.md §2 #2); at
+// scale the host input pipeline becomes the bottleneck long before the
+// accelerator does, so the hot host-side ops live here:
 //   * mulaw_encode: float waveform -> int32 mu-law class ids
 //   * mulaw_decode: int32 ids -> float waveform
 //   * gather_windows: batched strided window gather out of encoded clips

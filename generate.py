@@ -52,9 +52,9 @@ def parse_args(argv=None):
                         "jax.export into one deployment artifact "
                         "(wavenet_tpu.serving.load_decoder loads it without "
                         "model code)")
-    p.add_argument("--export-platforms", default="cpu,tpu",
+    p.add_argument("--export-platforms", default="cpu,cuda",
                    help="comma-separated lowering targets baked into the "
-                        "--export-aot artifact (default: portable cpu,tpu)")
+                        "--export-aot artifact (default: portable cpu,cuda)")
     p.add_argument("--data-parallel", type=int, default=1, metavar="N",
                    help="decode across N devices on the data (batch) mesh "
                         "axis (distributed AR generation)")
@@ -65,12 +65,9 @@ def parse_args(argv=None):
                         "at the same --seed for any mesh layout")
     p.add_argument("--scan-unroll", type=int, default=None, metavar="K",
                    help="unroll the XLA scan decoder's layer scan K-way "
-                        "(cfg.decode_unroll override; +65%% on the shipped "
-                        "full-preset route at K=8, tools/tpu_unroll_bench.py"
-                        " — pair with --compile-cache to amortize the cold "
-                        "compile). Ignored on kernel routes")
-    from wavenet_tpu.utils import compcache
-    compcache.add_cli_flag(p)
+                        "(cfg.decode_unroll override; the persistent "
+                        "compilation cache amortizes the longer compile). "
+                        "Ignored on kernel routes")
     return p.parse_args(argv)
 
 
@@ -88,9 +85,7 @@ def main(argv=None):
     from wavenet_tpu.models.api import WaveNet
 
     from wavenet_tpu.utils import compcache
-    cache_dir = compcache.enable_from_args(args)
-    if cache_dir:
-        print(f"compilation cache: {cache_dir}")
+    print(f"compilation cache: {compcache.enable()}", file=sys.stderr)
 
     model = WaveNet.from_checkpoint(args.ckpt, step=args.step,
                                     use_ema=not args.no_ema)

@@ -59,7 +59,7 @@ def score_clip(model, tokens, chunk, mel_self, speaker):
     Every chunk runs at ONE fixed shape [1, RF + chunk] (missing left
     context zero-filled under forward_logits' valid_mask, tail right-padded
     and discarded) — one XLA compile per clip set instead of one per
-    distinct tail length, which matters on remote-compile TPU setups."""
+    distinct tail length."""
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -124,7 +124,9 @@ def main(argv=None):
     from wavenet_tpu.audio import mulaw
     from wavenet_tpu.audio.io import read_wav
     from wavenet_tpu.models.api import WaveNet
+    from wavenet_tpu.utils import compcache
 
+    compcache.enable()
     model = WaveNet.from_checkpoint(args.ckpt, step=args.step,
                                     use_ema=not args.no_ema)
     cfg = model.cfg

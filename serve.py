@@ -18,6 +18,7 @@ Examples:
 from __future__ import annotations
 
 import argparse
+import sys
 
 
 def parse_args(argv=None):
@@ -54,12 +55,9 @@ def parse_args(argv=None):
                         "how they group")
     p.add_argument("--scan-unroll", type=int, default=None, metavar="K",
                    help="unroll the XLA scan decoder's layer scan K-way "
-                        "(cfg.decode_unroll override; +65%% on the shipped "
-                        "full-preset route at K=8, tools/tpu_unroll_bench.py"
-                        " — pair with --compile-cache to amortize the cold "
-                        "compile). Ignored on kernel-served configs")
-    from wavenet_tpu.utils import compcache
-    compcache.add_cli_flag(p)
+                        "(cfg.decode_unroll override; the persistent "
+                        "compilation cache amortizes the longer compile). "
+                        "Ignored on kernel-served configs")
     return p.parse_args(argv)
 
 
@@ -70,9 +68,7 @@ def main(argv=None) -> int:
     from wavenet_tpu.serving.http import make_server
     from wavenet_tpu.utils import compcache
 
-    cache_dir = compcache.enable_from_args(args)
-    if cache_dir:
-        print(f"compilation cache: {cache_dir}")
+    print(f"compilation cache: {compcache.enable()}", file=sys.stderr)
 
     if args.npz:
         model = WaveNet.from_npz(args.npz)

@@ -1,15 +1,15 @@
-"""Data-parallel shard_map loss (parallel/dataparallel.py): equals the plain
-loss for both the scan and the fused-kernel (interpret) stack."""
+"""Data parallelism by GSPMD: the plain XLA loss jitted over a batch
+sharded on the `data` axis equals the single-device loss and gradients."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from jax.sharding import NamedSharding, PartitionSpec as P
 
 from wavenet_tpu.config import WaveNetConfig
 from wavenet_tpu.models import wavenet as wn
-from wavenet_tpu.parallel import dataparallel as dp
-from wavenet_tpu.parallel.mesh import make_mesh
+from wavenet_tpu.parallel.mesh import DATA_AXIS, make_mesh
 
 
 def cfg_(**kw):
@@ -20,13 +20,18 @@ def cfg_(**kw):
     return WaveNetConfig(**base)
 
 
+def _sharded_tokens(mesh, toks):
+    return jax.device_put(toks, NamedSharding(mesh, P(DATA_AXIS, None)))
+
+
 def test_dp_scan_loss_matches():
     cfg = cfg_()
     mesh = make_mesh(cfg)
     p = wn.init_params(cfg, jax.random.PRNGKey(0))
     toks = jax.random.randint(jax.random.PRNGKey(1), (8, 65), 0, 256)
     ref, _ = wn.loss_fn(p, cfg, toks)
-    got, aux = jax.jit(lambda p, t: dp.loss_fn_dp(p, cfg, mesh, t))(p, toks)
+    got, aux = jax.jit(lambda p, t: wn.loss_fn(p, cfg, t))(
+        p, _sharded_tokens(mesh, toks))
     np.testing.assert_allclose(float(got), float(ref), rtol=2e-5)
     assert set(aux) == {"loss", "bits_per_sample", "accuracy"}
 
@@ -38,52 +43,13 @@ def test_dp_grads_match():
     toks = jax.random.randint(jax.random.PRNGKey(1), (8, 65), 0, 256)
     ref_l, ref_g = jax.value_and_grad(lambda p: wn.loss_fn(p, cfg, toks)[0])(p)
     dp_l, dp_g = jax.jit(jax.value_and_grad(
-        lambda p: dp.loss_fn_dp(p, cfg, mesh, toks)[0]))(p)
+        lambda p, t: wn.loss_fn(p, cfg, t)[0]))(p, _sharded_tokens(mesh, toks))
     np.testing.assert_allclose(float(dp_l), float(ref_l), rtol=2e-5)
     for (ka, a), (kb, b) in zip(
             jax.tree_util.tree_flatten_with_path(ref_g)[0],
             jax.tree_util.tree_flatten_with_path(dp_g)[0]):
         np.testing.assert_allclose(np.asarray(b), np.asarray(a),
                                    atol=5e-5, rtol=1e-4, err_msg=str(ka))
-
-
-def test_dp_with_fused_interpret():
-    """The fused kernel (interpret mode) inside the data shard_map."""
-    cfg = cfg_()
-    mesh = make_mesh(cfg)
-    p = wn.init_params(cfg, jax.random.PRNGKey(0))
-    toks = jax.random.randint(jax.random.PRNGKey(1), (8, 65), 0, 256)
-    ref, _ = wn.loss_fn(p, cfg, toks, use_fused=True, interpret=True)
-    got, _ = jax.jit(lambda p, t: dp.loss_fn_dp(
-        p, cfg, mesh, t, use_fused=True, interpret=True))(p, toks)
-    np.testing.assert_allclose(float(got), float(ref), rtol=5e-4, atol=5e-4)
-
-
-def test_dp_conditional_fused_grads_match():
-    """Conditional (mel) + data parallel + fused kernel — the combination
-    the round-1 trainer silently mis-gated (advisor r1 #3): mel shards on
-    batch through the dp shard_map and grads match the single-shard fused
-    loss, including the upsampler/v_cond leaves."""
-    from wavenet_tpu.config import MelConfig
-    mel_cfg = MelConfig(num_mels=8, hop_length=16, win_length=64,
-                        fmax=4000.0, upsample_factors=(4, 4))
-    cfg = cfg_(mel=mel_cfg)
-    mesh = make_mesh(cfg)
-    p = wn.init_params(cfg, jax.random.PRNGKey(0))
-    toks = jax.random.randint(jax.random.PRNGKey(1), (8, 65), 0, 256)
-    mel = jax.random.normal(jax.random.PRNGKey(2), (8, 4, 8))
-    ref_l, ref_g = jax.value_and_grad(lambda p: wn.loss_fn(
-        p, cfg, toks, mel=mel, use_fused=True, interpret=True)[0])(p)
-    dp_l, dp_g = jax.jit(jax.value_and_grad(lambda p: dp.loss_fn_dp(
-        p, cfg, mesh, toks, use_fused=True, interpret=True, mel=mel)[0]))(p)
-    np.testing.assert_allclose(float(dp_l), float(ref_l), rtol=5e-4,
-                               atol=5e-4)
-    for (ka, a), (kb, b) in zip(
-            jax.tree_util.tree_flatten_with_path(ref_g)[0],
-            jax.tree_util.tree_flatten_with_path(dp_g)[0]):
-        np.testing.assert_allclose(np.asarray(b, np.float32),
-                                   np.asarray(a, np.float32),
-                                   atol=5e-4, rtol=5e-3, err_msg=str(ka))
 
 
 def test_grad_accum_composes_with_mesh_trainer():
@@ -97,7 +63,7 @@ def test_grad_accum_composes_with_mesh_trainer():
     from wavenet_tpu.audio.dataset import AudioDataset
 
     cfg_a = cfg_(data_parallel=2, model_parallel=2, batch_size=4,
-                 grad_accum=2, compute_dtype="float32", fused_stack=False)
+                 grad_accum=2, compute_dtype="float32")
     ds_a = AudioDataset.synthetic(cfg_a, num_clips=2, clip_seconds=0.05)
     tr_a = Trainer(cfg_a, ds_a)
     toks = jax.random.randint(jax.random.PRNGKey(9), (8, 65), 0, 256)

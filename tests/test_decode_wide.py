@@ -1,11 +1,12 @@
-"""Wide-R (channels-on-lanes) whole-loop decode kernel vs the XLA scan.
+"""The GPU decode kernel at the `full` presets' channel widths (R = 128,
+S up to 256) vs the XLA scan.
 
-The contract is the transposed kernel's, on the configs that kernel cannot
-serve (R >= 128): token trajectories BIT-IDENTICAL to models.wavenet.generate
-in greedy, counter-RNG-sampled, primed, chunked, tiled, and
-globally-conditioned modes.  All tests run the kernel in interpret mode on
-CPU (conftest forces the cpu backend); hardware bit-exactness is gated by
-tools/tpu_verify.py's wide-decode checks.
+One kernel now covers both channel regimes.  The contract on these wide
+configs: token trajectories equal to models.wavenet.generate in greedy,
+counter-RNG-sampled, primed, chunked, tiled, and conditioned modes.  All
+tests run the kernel in the Pallas interpreter on the CPU, where kernel and
+scan agree bit for bit; chip_smoke.py compares them on the card within a
+stated tolerance.
 """
 
 import jax
@@ -16,12 +17,12 @@ import pytest
 from wavenet_tpu.config import WaveNetConfig, conditional, fastgen_bench, full
 from wavenet_tpu.models import wavenet as wn
 from wavenet_tpu.ops import rng
-from wavenet_tpu.ops.pallas import decode_wide as pwide
+from wavenet_tpu.ops.pallas import decode_gpu
 
 
 def cfg_(**kw):
     base = dict(num_blocks=1, max_dilation=8, residual_channels=128,
-                skip_channels=128, compute_dtype="bfloat16")
+                skip_channels=256, compute_dtype="bfloat16")
     base.update(kw)
     return WaveNetConfig(**base)
 
@@ -35,38 +36,26 @@ def setup():
 
 def test_supported_and_plans():
     from wavenet_tpu.config import full_vocoder
-    # the flagship presets are the kernel's raison d'etre — including the
-    # flagship-quality VOCODER (full stack + mel, round-4 verdict #1)
-    assert pwide.supported(full())
-    assert pwide.supported(full_vocoder())
-    bt, tc = pwide.plan_tiles(full(), 8)
-    assert bt == 8 and tc >= 8
-    assert pwide.fits_vmem(full(), 8)
-    assert pwide.fits_vmem(full(), 16)
-    bt, tc = pwide.plan_tiles(full_vocoder(), 8)
-    assert bt == 8 and tc >= pwide.TC_MIN_HW
-    # narrow-R models belong to the transposed kernel (mel included)
-    assert not pwide.supported(fastgen_bench())
-    assert not pwide.supported(conditional())
-    assert pwide.plan_tiles(fastgen_bench(), 8) == (0, 0)
-    # every plan honestly fits the budget (mel accounting included)
-    for preset in (full, full_vocoder):
-        for b in (1, 8, 16, 32):
-            bt, tc = pwide.plan_tiles(preset(), b)
-            if bt:
-                assert (pwide._tile_bytes(preset(), bt, tc)
-                        <= pwide.WIDE_VMEM_BUDGET)
+    # one kernel serves the wide presets and the narrow ones
+    for preset in (full, full_vocoder, fastgen_bench, conditional):
+        assert decode_gpu.supported(preset())
+    # B=8 pads to one 16-row tile; the mel channels pad 80 -> 128
+    assert decode_gpu.padded_rows(8) == 16
+    assert decode_gpu.padded_rows(64) // decode_gpu.BT == 4
+    assert decode_gpu.padded_mels(full_vocoder().mel.num_mels) == 128
+    # the skip width splits into 128-wide weight blocks
+    assert decode_gpu._parts(256) == [(0, 128), (128, 128)]
+    assert decode_gpu._parts(64) == [(0, 64)]
 
 
 def test_greedy_long_matches_scan(setup):
-    """512 greedy steps bit-equal to the scan — LONG on purpose: the
-    round-1..3 bf16 embed tables diverged from embed_tokens by one ulp on
-    ~37% of (token, prev) pairs, which flips greedy argmax at near-ties
-    within ~50 steps; the f32-selection embed fix is what this guards."""
+    """512 greedy steps equal to the scan — long on purpose: an embedding
+    off by one bf16 ulp on some (token, prev) pairs flips greedy argmax at
+    near-ties within ~50 steps."""
     cfg, params = setup
     key = jax.random.PRNGKey(1)
     B, N = 4, 512
-    tk = pwide.generate_wide(params, cfg, key, N, batch=B, temperature=0.0,
+    tk = decode_gpu.generate(params, cfg, key, N, batch=B, temperature=0.0,
                              interpret=True)
     ts = wn.generate(params, cfg, key, N, batch=B, temperature=0.0)
     np.testing.assert_array_equal(np.asarray(tk), np.asarray(ts))
@@ -77,7 +66,7 @@ def test_sampled_matches_scan_counter_rng(setup):
     key = jax.random.PRNGKey(1)
     B, N = 4, 256
     seeds = rng.derive_row_seeds(jnp.int32(7), B)
-    tk = pwide.generate_wide(params, cfg, key, N, batch=B, temperature=1.0,
+    tk = decode_gpu.generate(params, cfg, key, N, batch=B, temperature=1.0,
                              interpret=True, seeds=seeds)
     ts = wn.generate(params, cfg, key, N, batch=B, temperature=1.0,
                      seeds=seeds)
@@ -91,7 +80,7 @@ def test_primed_matches_scan(setup):
     key = jax.random.PRNGKey(1)
     B, P, N = 2, 13, 96
     prime = jax.random.randint(jax.random.PRNGKey(3), (B, P), 0, 256)
-    tk = pwide.generate_wide(params, cfg, key, N, batch=B, temperature=0.0,
+    tk = decode_gpu.generate(params, cfg, key, N, batch=B, temperature=0.0,
                              prime_tokens=prime, interpret=True)
     ts = wn.generate(params, cfg, key, N, batch=B, temperature=0.0,
                      prime_tokens=prime)
@@ -99,41 +88,38 @@ def test_primed_matches_scan(setup):
 
 
 def test_chunked_continuation_bit_identical(setup):
-    """Two decode_chunk calls with carried rings+tokens == one launch (the
-    streaming contract: the counter RNG keys by GLOBAL step)."""
+    """Two decode_chunk calls with the carried state and token == one call
+    (the streaming contract: the counter RNG keys by GLOBAL step), and a
+    kernel chunk may hand its state to the scan and back."""
     cfg, params = setup
     B, N = 2, 128
     seeds = rng.derive_row_seeds(jnp.int32(11), B)
-    rings, carry, s, g, P, total = pwide.setup_decode(
-        params, cfg, jax.random.PRNGKey(0), B, N, seeds=seeds)
-    one, _, _ = pwide.decode_chunk(params, cfg, rings, carry, jnp.int32(0),
-                                   s, N, 1.0, interpret=True,
-                                   force_tiles=(B, 64))
-    rings2, carry2, s2, _, _, _ = pwide.setup_decode(
-        params, cfg, jax.random.PRNGKey(0), B, N, seeds=seeds)
-    a, rings2, carry2 = pwide.decode_chunk(params, cfg, rings2, carry2,
-                                           jnp.int32(0), s2, 64, 1.0,
-                                           interpret=True,
-                                           force_tiles=(B, 32))
-    b, _, _ = pwide.decode_chunk(params, cfg, rings2, carry2, jnp.int32(64),
-                                 s2, 64, 1.0, interpret=True,
-                                 force_tiles=(B, 32))
+    tok = jnp.full((B,), 128, jnp.int32)
+    st0 = wn.decode_init(cfg, B)
+    _, _, one = decode_gpu.decode_chunk(params, cfg, st0, tok, seeds, N, 1.0,
+                                        interpret=True)
+    st, nxt, a = decode_gpu.decode_chunk(params, cfg, st0, tok, seeds, 64,
+                                         1.0, interpret=True)
+    _, _, b = decode_gpu.decode_chunk(params, cfg, st, nxt, seeds, 64, 1.0,
+                                      interpret=True)
     np.testing.assert_array_equal(
         np.asarray(one), np.asarray(jnp.concatenate([a, b], axis=1)))
+    _, _, b_scan = wn.decode_sample_chunk(params, cfg, st, nxt, None, 64, 64,
+                                          temperature=1.0, seeds=seeds)
+    np.testing.assert_array_equal(np.asarray(b_scan), np.asarray(b))
 
 
 def test_batch_tiles_match_untiled(setup):
     cfg, params = setup
     key = jax.random.PRNGKey(2)
-    B, N = 4, 64
+    B, N = 20, 64
     seeds = rng.derive_row_seeds(jnp.int32(5), B)
-    whole = pwide.generate_wide(params, cfg, key, N, batch=B,
-                                temperature=1.0, interpret=True, seeds=seeds,
-                                force_tiles=(4, 32))
-    tiled = pwide.generate_wide(params, cfg, key, N, batch=B,
-                                temperature=1.0, interpret=True, seeds=seeds,
-                                force_tiles=(2, 32))
-    np.testing.assert_array_equal(np.asarray(whole), np.asarray(tiled))
+    whole = decode_gpu.generate(params, cfg, key, N, batch=B,
+                                temperature=1.0, interpret=True, seeds=seeds)
+    alone = decode_gpu.generate(params, cfg, key, N, batch=4,
+                                temperature=1.0, interpret=True,
+                                seeds=seeds[16:])
+    np.testing.assert_array_equal(np.asarray(whole[16:]), np.asarray(alone))
 
 
 def test_global_conditioning_matches_scan():
@@ -143,7 +129,7 @@ def test_global_conditioning_matches_scan():
     B, N = 4, 96
     speaker = jnp.asarray([0, 1, 2, 3], jnp.int32)
     seeds = rng.derive_row_seeds(jnp.int32(9), B)
-    tk = pwide.generate_wide(params, cfg, key, N, batch=B, temperature=1.0,
+    tk = decode_gpu.generate(params, cfg, key, N, batch=B, temperature=1.0,
                              speaker=speaker, interpret=True, seeds=seeds)
     ts = wn.generate(params, cfg, key, N, batch=B, temperature=1.0,
                      speaker=speaker, seeds=seeds)
@@ -153,20 +139,15 @@ def test_global_conditioning_matches_scan():
     assert not np.array_equal(t[0], t[1])
 
 
-def test_stream_wide_matches_one_shot(setup, monkeypatch):
-    """generate_stream routes wide-R configs through the wide kernel and
-    the concatenated chunks equal the one-shot decode (carried rings +
-    global-step RNG keying)."""
+def test_stream_wide_matches_one_shot(setup):
+    """generate_stream runs wide configs through the kernel and the
+    concatenated chunks equal the one-shot decode."""
     from wavenet_tpu.generate.sampler import generate_stream
-    from wavenet_tpu.ops.pallas import decode as pdec
     cfg, params = setup
-    # this small test config happens to fit the transposed kernel too;
-    # force the wide streaming branch (the `full`-preset situation)
-    monkeypatch.setattr(pdec, "fits_vmem", lambda *a, **k: False)
     key = jax.random.PRNGKey(4)
     B, N = 2, 200
     seeds = rng.derive_row_seeds(jnp.int32(3), B)
-    one = pwide.generate_wide(params, cfg, key, N, batch=B,
+    one = decode_gpu.generate(params, cfg, key, N, batch=B,
                               temperature=1.0, interpret=True, seeds=seeds)
     chunks = list(generate_stream(params, cfg, key, N, chunk_samples=48,
                                   batch=B, temperature=1.0, interpret=True,
@@ -177,25 +158,22 @@ def test_stream_wide_matches_one_shot(setup, monkeypatch):
 
 
 def test_generate_auto_routes_wide(setup, monkeypatch):
-    """On a TPU backend, generate_auto sends wide-R configs that the
-    transposed kernel refuses (the `full` preset case) to the wide kernel,
-    not the scan."""
+    """On a GPU, generate_auto sends the wide configs to the kernel without
+    being asked for interpret mode, and the kernel gets interpret=False."""
+    from wavenet_tpu import route
     import wavenet_tpu.generate.sampler as sampler
-    from wavenet_tpu.ops.pallas import decode as pdec
     cfg, params = setup
-    monkeypatch.setattr(sampler, "_tpu_backend", lambda: True)
-    # make this small test config look like `full`: transposed kernel out
-    monkeypatch.setattr(pdec, "fits_vmem", lambda *a, **k: False)
+    monkeypatch.setattr(route, "current_platform", lambda: "gpu")
     called = {}
 
-    def fake_wide(p, c, key, n, **kw):
-        called["wide"] = True
+    def fake(p, c, key, n, **kw):
+        called.update(kw)
         return jnp.zeros((kw.get("batch", 1), n), jnp.int32)
 
-    monkeypatch.setattr(pwide, "generate_wide", fake_wide)
+    monkeypatch.setattr(decode_gpu, "generate", fake)
     out = sampler.generate_auto(params, cfg, jax.random.PRNGKey(0), 16,
                                 batch=2)
-    assert called.get("wide") and out.shape == (2, 16)
+    assert called and called["interpret"] is False and out.shape == (2, 16)
 
 
 def _mel_cfg():
@@ -210,8 +188,8 @@ def _mel_setup(key_p=0, key_m=2, B=2, total=32, **cfg_kw):
     params = wn.init_params(cfg, jax.random.PRNGKey(key_p))
     mel = jax.random.normal(jax.random.PRNGKey(key_m), (B, -(-total // 16), 8))
     y = upsample_mel(params["upsampler"], cfg.mel, mel, total)   # [B, T, M]
-    # per-step gate contributions mirroring the kernel's MXU precision:
-    # bf16 inputs, f32 accumulation (the transposed kernel's test recipe)
+    # per-step gate contributions in the kernel's recipe: bf16 inputs, f32
+    # accumulation
     cond = jnp.einsum("btm,lmgr->btlgr", y.astype(jnp.bfloat16),
                       params["v_cond"].astype(jnp.bfloat16),
                       preferred_element_type=jnp.float32)
@@ -219,8 +197,8 @@ def _mel_setup(key_p=0, key_m=2, B=2, total=32, **cfg_kw):
 
 
 def test_mel_greedy_matches_xla_interpret():
-    """In-kernel streamed-mel conditioning (wide layout) == the XLA scan
-    decoder with per-step cond_t (round-4 verdict #1)."""
+    """In-kernel streamed-mel conditioning == the XLA scan decoder with
+    per-step cond_t."""
     B, N = 2, 32
     cfg, params, y, cond = _mel_setup(B=B, total=N)
     st = wn.decode_init(cfg, B)
@@ -232,7 +210,7 @@ def test_mel_greedy_matches_xla_interpret():
         outs.append(tok)
     ref = np.asarray(jnp.stack(outs, axis=1))
 
-    got = pwide.generate_wide(params, cfg, jax.random.PRNGKey(0), N,
+    got = decode_gpu.generate(params, cfg, jax.random.PRNGKey(0), N,
                               batch=B, y=y, temperature=0.0, interpret=True)
     np.testing.assert_array_equal(np.asarray(got), ref)
 
@@ -245,7 +223,7 @@ def test_mel_primed_sampled_matches_scan():
     cfg, params, y, cond = _mel_setup(B=B, total=total)
     prime = jax.random.randint(jax.random.PRNGKey(9), (B, P), 0, 256)
     seeds = rng.derive_row_seeds(jnp.int32(21), B)
-    tk = pwide.generate_wide(params, cfg, jax.random.PRNGKey(1), N, batch=B,
+    tk = decode_gpu.generate(params, cfg, jax.random.PRNGKey(1), N, batch=B,
                              prime_tokens=prime, y=y, temperature=1.0,
                              interpret=True, seeds=seeds)
     ts = wn.generate(params, cfg, jax.random.PRNGKey(1), N, batch=B,
@@ -257,38 +235,32 @@ def test_mel_primed_sampled_matches_scan():
 
 
 def test_mel_chunked_continuation_bit_identical():
-    """Two wide decode_chunk launches with per-chunk y slices == one launch
-    (the streaming contract with mel blocks)."""
+    """Two decode_chunk calls with per-chunk y slices == one call (the
+    streaming contract with mel)."""
     B, N = 2, 128
     cfg, params, y, _ = _mel_setup(B=B, total=N)
     seeds = rng.derive_row_seeds(jnp.int32(11), B)
-    rings, carry, s, g, P, total = pwide.setup_decode(
-        params, cfg, jax.random.PRNGKey(0), B, N, seeds=seeds)
-    one, _, _ = pwide.decode_chunk(params, cfg, rings, carry, jnp.int32(0),
-                                   s, N, 1.0, interpret=True, y=y,
-                                   force_tiles=(B, 64))
-    rings2, carry2, s2, _, _, _ = pwide.setup_decode(
-        params, cfg, jax.random.PRNGKey(0), B, N, seeds=seeds)
-    a, rings2, carry2 = pwide.decode_chunk(params, cfg, rings2, carry2,
-                                           jnp.int32(0), s2, 64, 1.0,
-                                           interpret=True, y=y[:, :64],
-                                           force_tiles=(B, 32))
-    b, _, _ = pwide.decode_chunk(params, cfg, rings2, carry2, jnp.int32(64),
-                                 s2, 64, 1.0, interpret=True, y=y[:, 64:],
-                                 force_tiles=(B, 32))
+    tok = jnp.full((B,), 128, jnp.int32)
+    st0 = wn.decode_init(cfg, B)
+    _, _, one = decode_gpu.decode_chunk(params, cfg, st0, tok, seeds, N, 1.0,
+                                        y=y, interpret=True)
+    st, nxt, a = decode_gpu.decode_chunk(params, cfg, st0, tok, seeds, 64,
+                                         1.0, y=y[:, :64], interpret=True)
+    _, _, b = decode_gpu.decode_chunk(params, cfg, st, nxt, seeds, 64, 1.0,
+                                      y=y[:, 64:], interpret=True)
     np.testing.assert_array_equal(
         np.asarray(one), np.asarray(jnp.concatenate([a, b], axis=1)))
 
 
 def test_mel_plus_speaker_matches_scan():
     """Local (streamed mel) AND global (speaker) conditioning in the same
-    wide launch — covers the kernel's has_cond+has_gc operand ordering."""
+    launch — covers the kernel's has_cond+has_gc operand ordering."""
     B, N = 3, 48
     cfg, params, y, cond = _mel_setup(B=B, total=N, global_classes=3,
                                       global_channels=8)
     speaker = jnp.asarray([0, 1, 2], jnp.int32)
     seeds = rng.derive_row_seeds(jnp.int32(17), B)
-    tk = pwide.generate_wide(params, cfg, jax.random.PRNGKey(1), N, batch=B,
+    tk = decode_gpu.generate(params, cfg, jax.random.PRNGKey(1), N, batch=B,
                              y=y, speaker=speaker, temperature=1.0,
                              interpret=True, seeds=seeds)
     ts = wn.generate(params, cfg, jax.random.PRNGKey(1), N, batch=B,
@@ -297,16 +269,14 @@ def test_mel_plus_speaker_matches_scan():
     np.testing.assert_array_equal(np.asarray(tk), np.asarray(ts))
 
 
-def test_stream_wide_mel_matches_one_shot(monkeypatch):
-    """generate_stream slices the upsampled mel per wide-kernel chunk; the
+def test_stream_wide_mel_matches_one_shot():
+    """generate_stream slices the upsampled mel per kernel chunk; the
     chunks concatenate to the one-shot conditioned decode."""
     from wavenet_tpu.generate.sampler import generate_stream
-    from wavenet_tpu.ops.pallas import decode as pdec
     B, N = 2, 160
     cfg, params, y, _ = _mel_setup(B=B, total=N)
-    monkeypatch.setattr(pdec, "fits_vmem", lambda *a, **k: False)
     seeds = rng.derive_row_seeds(jnp.int32(3), B)
-    one = pwide.generate_wide(params, cfg, jax.random.PRNGKey(4), N,
+    one = decode_gpu.generate(params, cfg, jax.random.PRNGKey(4), N,
                               batch=B, y=y, temperature=1.0,
                               interpret=True, seeds=seeds)
     chunks = list(generate_stream(params, cfg, jax.random.PRNGKey(4), N,
@@ -318,62 +288,44 @@ def test_stream_wide_mel_matches_one_shot(monkeypatch):
     np.testing.assert_array_equal(got, np.asarray(one))
 
 
-def test_wide_dp_fanout_mel_matches_single_chip():
-    """The dp fan-out serves wide+mel models: y shards with the batch and
-    tokens equal the single-chip wide kernel (round-4 verdict #1 — the
-    flagship vocoder over a dp mesh)."""
+def _dp_mesh(n):
     from jax.sharding import Mesh
     from wavenet_tpu.parallel import distdecode
-    from wavenet_tpu.ops.pallas import decode as pdec
+    return Mesh(np.asarray(jax.devices()[:n]).reshape(n, 1),
+                (distdecode.DATA_AXIS, distdecode.MODEL_AXIS))
+
+
+def test_wide_dp_fanout_mel_matches_single_chip():
+    """The dp fan-out serves wide+mel models: y shards with the batch and
+    tokens equal the single-device kernel."""
+    from wavenet_tpu.parallel import distdecode
     B, N = 4, 48
     cfg, params, y, _ = _mel_setup(B=B, total=N)
-    devs = jax.devices()[:2]
-    mesh = Mesh(np.asarray(devs).reshape(2, 1),
-                (distdecode.DATA_AXIS, distdecode.MODEL_AXIS))
-    orig = pdec.fits_vmem
-    pdec.fits_vmem = lambda *a, **k: False
-    try:
-        dp_toks = distdecode.generate_pallas_dp(
-            params, cfg, mesh, seed=5, num_samples=N, batch=B, y=y,
-            interpret=True)
-    finally:
-        pdec.fits_vmem = orig
-    one = pwide.generate_wide(params, cfg, None, N, batch=B, y=y,
+    dp_toks = distdecode.generate_pallas_dp(
+        params, cfg, _dp_mesh(2), seed=5, num_samples=N, batch=B, y=y,
+        interpret=True)
+    one = decode_gpu.generate(params, cfg, None, N, batch=B, y=y,
                               interpret=True, seeds=rng.as_row_seeds(5, B))
     np.testing.assert_array_equal(np.asarray(dp_toks), np.asarray(one))
 
 
 def test_wide_dp_fanout_matches_single_chip():
-    """generate_pallas_dp routes wide-R configs through the wide kernel per
-    data shard; tokens equal the single-chip wide kernel over the full
-    batch (per-row counter RNG keyed by GLOBAL row index), one-shot AND
-    streamed."""
-    from jax.sharding import Mesh
+    """generate_pallas_dp runs the kernel per data shard; tokens equal the
+    single-device kernel over the full batch (per-row counter RNG keyed by
+    GLOBAL row index), one-shot AND streamed."""
     from wavenet_tpu.parallel import distdecode
     cfg = cfg_(global_classes=4)
     params = wn.init_params(cfg, jax.random.PRNGKey(0))
-    devs = jax.devices()[:4]
-    mesh = Mesh(np.asarray(devs).reshape(4, 1),
-                (distdecode.DATA_AXIS, distdecode.MODEL_AXIS))
+    mesh = _dp_mesh(4)
     B, N = 8, 64
     speaker = jnp.arange(B, dtype=jnp.int32) % 4
-    # make the per-shard batch look like the `full` case (transposed kernel
-    # refuses) without monkeypatching shard_map internals: the real full()
-    # preset is too slow for CPU interpret, so rely on plan order instead —
-    # the dp router must pick wide whenever pdec refuses
-    from wavenet_tpu.ops.pallas import decode as pdec
-    orig = pdec.fits_vmem
-    pdec.fits_vmem = lambda *a, **k: False
-    try:
-        dp_toks = distdecode.generate_pallas_dp(
-            params, cfg, mesh, seed=3, num_samples=N, batch=B,
-            speaker=speaker, interpret=True)
-        chunks = list(distdecode.generate_pallas_dp_stream(
-            params, cfg, mesh, seed=3, num_samples=N, batch=B,
-            chunk_samples=32, speaker=speaker, interpret=True))
-    finally:
-        pdec.fits_vmem = orig
-    one = pwide.generate_wide(params, cfg, None, N, batch=B,
+    dp_toks = distdecode.generate_pallas_dp(
+        params, cfg, mesh, seed=3, num_samples=N, batch=B,
+        speaker=speaker, interpret=True)
+    chunks = list(distdecode.generate_pallas_dp_stream(
+        params, cfg, mesh, seed=3, num_samples=N, batch=B,
+        chunk_samples=32, speaker=speaker, interpret=True))
+    one = decode_gpu.generate(params, cfg, None, N, batch=B,
                               speaker=speaker, interpret=True,
                               seeds=rng.as_row_seeds(3, B))
     np.testing.assert_array_equal(np.asarray(dp_toks), np.asarray(one))

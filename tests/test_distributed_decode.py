@@ -96,40 +96,38 @@ def test_pallas_dp_matches_single_chip_kernel():
     cfg = cfg_(compute_dtype="bfloat16")
     cfg = cfg.replace(data_parallel=4)
     mesh = make_mesh(cfg)
-    from wavenet_tpu.ops.pallas import decode as pdec
+    from wavenet_tpu.ops.pallas import decode_gpu
     p = wn.init_params(cfg, jax.random.PRNGKey(0))
     B, N = 8, 16
     got = dd.generate_pallas_dp(p, cfg, mesh, 9, N, batch=B,
                                 interpret=True)
     assert got.shape == (B, N)
-    want = pdec.generate_pallas(p, cfg, None, N, batch=B, interpret=True,
-                                seeds=9)
+    want = decode_gpu.generate(p, cfg, None, N, batch=B, interpret=True,
+                               seeds=9)
     np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
     # and each shard equals a standalone kernel run over its seed slice
     from wavenet_tpu.ops import rng
     seeds = rng.as_row_seeds(9, B)
     per = B // 4
-    shard0 = pdec.generate_pallas(p, cfg, None, N, batch=per,
-                                  interpret=True, seeds=seeds[:per])
+    shard0 = decode_gpu.generate(p, cfg, None, N, batch=per,
+                                 interpret=True, seeds=seeds[:per])
     np.testing.assert_array_equal(np.asarray(got[:per]), np.asarray(shard0))
 
 
 def test_sampled_tokens_unified_across_all_decoders():
     """ONE counter RNG (ops/rng.py) drives every sampled decoder: at the
-    same per-row seeds, the whole-loop Pallas kernel, its data-parallel
-    fan-out, the XLA scan's counter-sampling mode, and the collective
-    decoder over (4,1) and (2,2) meshes all emit IDENTICAL tokens
-    (bfloat16 compute, where kernel and scan logits bit-match) — the
-    round-2 verdict #1 contract that lets serving route sampled
-    distributed traffic through the kernel."""
-    from wavenet_tpu.ops.pallas import decode as pdec
+    same per-row seeds, the whole-loop decode kernel (interpreter), its
+    data-parallel fan-out, the XLA scan's counter-sampling mode, and the
+    collective decoder over (4,1) and (2,2) meshes all emit IDENTICAL
+    tokens on the CPU, where kernel and scan logits agree bit for bit."""
+    from wavenet_tpu.ops.pallas import decode_gpu
     B, N, seed = 4, 40, 123
     base = cfg_(compute_dtype="bfloat16")
     p = wn.init_params(base, jax.random.PRNGKey(0))
 
     from wavenet_tpu.ops import rng
-    kernel = pdec.generate_pallas(p, base, None, N, batch=B, interpret=True,
-                                  seeds=seed, temperature=1.0)
+    kernel = decode_gpu.generate(p, base, None, N, batch=B, interpret=True,
+                                 seeds=seed, temperature=1.0)
     scan = wn.generate(p, base, None, N, batch=B, temperature=1.0,
                        seeds=rng.as_row_seeds(seed, B))
     np.testing.assert_array_equal(np.asarray(kernel), np.asarray(scan),
@@ -150,7 +148,7 @@ def test_sampled_tokens_unified_across_all_decoders():
                                    mesh_dp, seed, N, batch=B,
                                    temperature=1.0, interpret=True)
     np.testing.assert_array_equal(np.asarray(dp_fan), toks,
-                                  err_msg="pallas dp fan-out")
+                                  err_msg="kernel dp fan-out")
 
 
 @pytest.mark.parametrize("dp,mp", [(4, 1), (2, 2)])
@@ -223,7 +221,7 @@ def test_mesh_streaming_conditional_matches_one_shot():
 
 def test_pallas_dp_streaming_matches_one_shot():
     """generate_pallas_dp_stream (interpret): shard_map'd kernel chunks
-    carrying sharded ring state concatenate to the one-shot dp fan-out —
+    carrying the sharded decode state concatenate to the one-shot fan-out —
     AND to the collective mesh stream at the same seeds (unified RNG)."""
     cfg = cfg_(compute_dtype="bfloat16").replace(data_parallel=4)
     mesh = make_mesh(cfg)

@@ -191,12 +191,12 @@ def test_sampler_trajectory_identical_to_fast_mel():
                            prime_tokens=prime, y=y, temperature=0.0)
     np.testing.assert_array_equal(np.asarray(fast), np.asarray(naive))
 
-    # and the whole-loop Pallas kernel (interpret) on the same features
-    from wavenet_tpu.ops.pallas import decode as pdec
-    if pdec.fits_vmem(cfg, B):
-        k = pdec.generate_pallas(p, cfg, jax.random.PRNGKey(11), 40,
-                                 batch=B, y=y[:, :40], temperature=0.0,
-                                 interpret=True)
+    # and the whole-loop decode kernel (interpreter) on the same features
+    from wavenet_tpu.ops.pallas import decode_gpu
+    if decode_gpu.supported(cfg):
+        k = decode_gpu.generate(p, cfg, jax.random.PRNGKey(11), 40,
+                                batch=B, y=y[:, :40], temperature=0.0,
+                                interpret=True)
         naive = generate_naive(p, cfg, jax.random.PRNGKey(12), 40, batch=B,
                                y=y[:, :40], temperature=0.0)
         np.testing.assert_array_equal(np.asarray(k), np.asarray(naive))

@@ -5,8 +5,9 @@ layer's gate as a time-constant offset.  Covered here:
 
   * model semantics: the offset actually changes the distribution and equals
     a hand-computed oracle application;
-  * fused-kernel equivalence (interpret mode): loss + ALL gradients,
-    including g_embed / v_global cotangents through the in-kernel offset;
+  * the XLA stack against a recipe oracle, with gradient reaching
+    g_embed / v_global;
+  * the GPU decode kernel (interpret mode) against the scan decoder;
   * decode equivalence: teacher-forced fast-queue decode logits == full
     forward logits with the same speaker ids;
   * data-parallel path: sharded loss/grads == single-device (CPU mesh);
@@ -63,9 +64,8 @@ def test_missing_speaker_raises():
 
 
 def oracle_skip_gc(params, cfg, x, g):
-    """Pure-jnp mirror of the kernel recipe (f32 carry, bf16 MXU inputs)
-    with the per-layer global gate offset g [L, B, 2, R] added — the same
-    oracle style as tests/test_pallas_train.py."""
+    """Pure-jnp layer recipe (f32 carry, bf16 matmul inputs) with the
+    per-layer global gate offset g [L, B, 2, R] added."""
     L, R = cfg.num_layers, cfg.residual_channels
     bf = jnp.bfloat16
     x = x.astype(jnp.float32)
@@ -90,47 +90,26 @@ def oracle_skip_gc(params, cfg, x, g):
     return skip
 
 
-def test_fused_matches_oracle_and_scan_loss():
-    """Fused kernels (interpret) with global conditioning: tight gradient
-    match against the recipe oracle — g_embed/v_global cotangents through
-    the in-kernel offset included — plus scan-path loss closeness."""
+def test_scan_matches_oracle_with_speaker():
+    """The XLA stack with global conditioning against the recipe oracle:
+    logits through the shared head agree within the bf16 band, and the
+    g_embed/v_global leaves receive gradient."""
     cfg = cfg_()
-    from wavenet_tpu.ops.pallas.train_stack import forward_skip_fused
     p = wn.init_params(cfg, jax.random.PRNGKey(0))
     toks = jax.random.randint(jax.random.PRNGKey(1), (2, 64), 0, 256)
     sp = jnp.asarray([1, 3], jnp.int32)
-    tgt = jax.random.normal(jax.random.PRNGKey(2), (2, 64, 16))
-
-    def loss_with(stack_fn, p):
-        prev = jnp.pad(toks[:, :-1], ((0, 0), (1, 0)))
-        x = wn.embed_tokens(p, cfg, toks, prev)
-        g = wn.global_cond_offsets(p, cfg, sp)
-        return jnp.mean((stack_fn(p, x, g) - tgt) ** 2)
-
-    ref_l, ref_g = jax.value_and_grad(lambda p: loss_with(
-        lambda p, x, g: oracle_skip_gc(p, cfg, x, g), p))(p)
-    fus_l, fus_g = jax.value_and_grad(lambda p: loss_with(
-        lambda p, x, g: forward_skip_fused(p, cfg, x, interpret=True, g=g),
-        p))(p)
-    np.testing.assert_allclose(float(fus_l), float(ref_l), rtol=2e-3)
-    for (ka, a), (kb, b) in zip(
-            jax.tree_util.tree_flatten_with_path(ref_g)[0],
-            jax.tree_util.tree_flatten_with_path(fus_g)[0]):
-        a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
-        scale = max(np.abs(a).max(), 1e-3)
-        np.testing.assert_allclose(b / scale, a / scale, atol=0.02,
-                                   err_msg=str(ka))
-    # the global-conditioning params actually receive gradient
-    assert np.abs(np.asarray(fus_g["g_embed"], np.float32)).max() > 0
-    assert np.abs(np.asarray(fus_g["v_global"], np.float32)).max() > 0
-
-    # scan-path sanity: losses close (fused vs scan precision recipes)
-    toks65 = jax.random.randint(jax.random.PRNGKey(3), (2, 65), 0, 256)
-    ref2 = wn.loss_fn(p, cfg, toks65, speaker=sp)[0]
-    got2 = wn.loss_fn(p, cfg, toks65, speaker=sp, use_fused=True,
-                      interpret=True)[0]
-    np.testing.assert_allclose(float(got2), float(ref2), atol=5e-3,
-                               rtol=2e-3)
+    prev = jnp.pad(toks[:, :-1], ((0, 0), (1, 0)))
+    x = wn.embed_tokens(p, cfg, toks, prev)
+    g = wn.global_cond_offsets(p, cfg, sp)
+    want = wn.head_logits(p, cfg, oracle_skip_gc(p, cfg, x, g))
+    got = wn.forward_logits(p, cfg, toks, speaker=sp)
+    scale = float(jnp.abs(want).max())
+    np.testing.assert_allclose(np.asarray(got) / scale,
+                               np.asarray(want) / scale, atol=0.02)
+    grads = jax.grad(lambda p: wn.loss_fn(
+        p, cfg, jnp.pad(toks, ((0, 0), (0, 1))), speaker=sp)[0])(p)
+    assert np.abs(np.asarray(grads["g_embed"])).max() > 0
+    assert np.abs(np.asarray(grads["v_global"])).max() > 0
 
 
 def test_decode_matches_forward():
@@ -167,8 +146,8 @@ def test_generate_with_speaker_runs():
 
 
 def test_dataparallel_matches_single_device():
-    from wavenet_tpu.parallel.dataparallel import loss_fn_dp
-    from wavenet_tpu.parallel.mesh import make_mesh
+    from jax.sharding import NamedSharding, PartitionSpec as P
+    from wavenet_tpu.parallel.mesh import DATA_AXIS, make_mesh
     cfg = cfg_(data_parallel=4, batch_size=8)
     mesh = make_mesh(cfg)
     p = wn.init_params(cfg, jax.random.PRNGKey(0))
@@ -177,14 +156,16 @@ def test_dataparallel_matches_single_device():
 
     ref_l, ref_g = jax.value_and_grad(
         lambda p: wn.loss_fn(p, cfg, toks, speaker=sp)[0])(p)
-    with mesh:
-        dp_l, dp_g = jax.jit(jax.value_and_grad(
-            lambda p: loss_fn_dp(p, cfg, mesh, toks, speaker=sp)[0]))(p)
+    rows = NamedSharding(mesh, P(DATA_AXIS))
+    dp_l, dp_g = jax.jit(jax.value_and_grad(
+        lambda p, t, s: wn.loss_fn(p, cfg, t, speaker=s)[0]))(
+            p, jax.device_put(toks, NamedSharding(mesh, P(DATA_AXIS, None))),
+            jax.device_put(sp, rows))
     np.testing.assert_allclose(float(dp_l), float(ref_l), rtol=1e-5)
     for (ka, a), (kb, b) in zip(
             jax.tree_util.tree_flatten_with_path(ref_g)[0],
             jax.tree_util.tree_flatten_with_path(dp_g)[0]):
-        # per-shard partial sums reassociate the reduction: bf16-noise band
+        # sharded partial sums reassociate the reduction: bf16-noise band
         np.testing.assert_allclose(np.asarray(b, np.float32),
                                    np.asarray(a, np.float32),
                                    atol=3e-5, rtol=2e-2, err_msg=str(ka))
@@ -207,9 +188,10 @@ def test_trainer_end_to_end_with_speakers():
 
 
 def test_pallas_decode_with_speaker_matches_xla_interpret():
-    """Whole-loop Pallas decode with the in-kernel global gate offset must
-    greedy-match the XLA scan decoder step-for-step (interpret mode)."""
-    from wavenet_tpu.ops.pallas import decode as pdec
+    """Whole-loop GPU decode kernel (interpret mode) with the per-layer
+    speaker gate offset must greedy-match the XLA scan decoder
+    step-for-step."""
+    from wavenet_tpu.ops.pallas import decode_gpu
     cfg = cfg_()
     p = wn.init_params(cfg, jax.random.PRNGKey(0))
     B, N = 2, 40
@@ -228,18 +210,12 @@ def test_pallas_decode_with_speaker_matches_xla_interpret():
     (_, _), ref = jax.lax.scan(body, (st, token0), None, length=N)
     ref = jnp.moveaxis(ref, 0, 1)
 
-    got = pdec.generate_pallas(p, cfg, jax.random.PRNGKey(0), N, batch=B,
-                               prime_tokens=token0[:, None], speaker=sp,
-                               temperature=0.0, interpret=True)
+    got = decode_gpu.generate(p, cfg, jax.random.PRNGKey(0), N, batch=B,
+                              prime_tokens=token0[:, None], speaker=sp,
+                              temperature=0.0, interpret=True)
     np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
-    # batch-tiled launches slice the per-tile g block — must not change it
-    tiled = pdec.generate_pallas(p, cfg, jax.random.PRNGKey(0), N, batch=B,
-                                 prime_tokens=token0[:, None], speaker=sp,
-                                 temperature=0.0, interpret=True,
-                                 force_tiles=(1, 8))
-    np.testing.assert_array_equal(np.asarray(tiled), np.asarray(ref))
     # and without the offset the greedy tokens must differ
-    got0 = pdec.generate_pallas(
+    got0 = decode_gpu.generate(
         p, cfg.replace(global_classes=None), jax.random.PRNGKey(0), N,
         batch=B, prime_tokens=token0[:, None], temperature=0.0,
         interpret=True)
@@ -248,7 +224,7 @@ def test_pallas_decode_with_speaker_matches_xla_interpret():
 
 def test_mel_plus_speaker_compose():
     """Local (mel) and global (speaker) conditioning in the SAME model:
-    scan and fused paths agree on the loss, decode matches the forward."""
+    the loss is finite and the teacher-forced decode matches the forward."""
     from wavenet_tpu.config import MelConfig
     mel_cfg = MelConfig(num_mels=8, hop_length=16, win_length=64,
                         fmax=4000.0, upsample_factors=(4, 4))
@@ -259,9 +235,7 @@ def test_mel_plus_speaker_compose():
     sp = jnp.asarray([1, 3], jnp.int32)
 
     ref = wn.loss_fn(p, cfg, toks, mel=mel, speaker=sp)[0]
-    got = wn.loss_fn(p, cfg, toks, mel=mel, speaker=sp, use_fused=True,
-                     interpret=True)[0]
-    np.testing.assert_allclose(float(got), float(ref), atol=5e-3, rtol=2e-3)
+    assert np.isfinite(float(ref))
 
     # teacher-forced decode with BOTH conditionings == full forward
     from wavenet_tpu.models.conditioning import upsample_mel
@@ -351,23 +325,21 @@ def test_distributed_decode_with_speaker_matches_single_device():
 
 
 def test_pallas_decode_awkward_totals_interpret():
-    """Primed generation whose total step count is prime (no usable chunk
-    divisor) must still lower: generate_pallas pads to whole chunks and
-    discards the tail.  Found live: 0.25 s prime + 2 s at 16 kHz = 35999
-    steps -> TC=1 -> Mosaic block-shape error."""
-    from wavenet_tpu.ops.pallas import decode as pdec
+    """Primed generation whose total step count is prime: the kernel has no
+    time-block divisibility rule, and the tokens of a shorter request are a
+    prefix of the longer one's (AR causality)."""
+    from wavenet_tpu.ops.pallas import decode_gpu
     cfg = cfg_(global_classes=None)
     p = wn.init_params(cfg, jax.random.PRNGKey(0))
     prime = jax.random.randint(jax.random.PRNGKey(1), (1, 14), 0, 256)
     # total = 13 + 54 = 67 (prime)
-    toks = pdec.generate_pallas(p, cfg, jax.random.PRNGKey(2), 54, batch=1,
-                                prime_tokens=prime, temperature=0.0,
-                                interpret=True)
-    assert toks.shape == (1, 54)
-    # padding must not change the tokens: same request with a round total
-    ref = pdec.generate_pallas(p, cfg, jax.random.PRNGKey(2), 51, batch=1,
+    toks = decode_gpu.generate(p, cfg, jax.random.PRNGKey(2), 54, batch=1,
                                prime_tokens=prime, temperature=0.0,
                                interpret=True)
+    assert toks.shape == (1, 54)
+    ref = decode_gpu.generate(p, cfg, jax.random.PRNGKey(2), 51, batch=1,
+                              prime_tokens=prime, temperature=0.0,
+                              interpret=True)
     np.testing.assert_array_equal(np.asarray(toks[:, :51]), np.asarray(ref))
 
 
@@ -400,78 +372,6 @@ def test_from_dir_speaker_subdirs(tmp_path):
     with pytest.raises(ValueError, match="global_classes"):
         AudioDataset.from_dir(str(tmp_path),
                               cfg.replace(global_classes=2))
-
-
-def test_pipeline_with_speaker_matches_fused(monkeypatch):
-    """Layer-pipeline model parallelism + speaker: each stage computes its
-    own gate offsets from the LOCAL layer-sharded v_global slice; loss and
-    all grads must match the single-device fused path."""
-    from wavenet_tpu.parallel import pipeline as pp
-    from wavenet_tpu.parallel.mesh import make_mesh
-    from wavenet_tpu.ops.pallas import train_stack as ts
-    cfg = cfg_(num_blocks=4, batch_size=4, train_window=64,
-               model_parallel=2, data_parallel=2)
-    # align single-device group plan to stage boundaries (bit-matched
-    # numerics; see tests/test_pipeline.py::align_group_budget)
-    TT = ts.pick_tile(cfg, 64)
-    Lst = cfg.num_layers // 2
-    budget = max(max(ts._group_sizes(cfg, TT, cfg.dilations[i:i + Lst]))
-                 for i in range(0, cfg.num_layers - Lst + 1))
-    monkeypatch.setattr(ts, "VMEM_BUDGET", budget)
-    mesh = make_mesh(cfg)
-    p = wn.init_params(cfg, jax.random.PRNGKey(0))
-    toks = jax.random.randint(jax.random.PRNGKey(1), (4, 65), 0, 256)
-    sp = jnp.asarray([0, 1, 2, 3], jnp.int32)
-
-    ref_l, ref_g = jax.value_and_grad(
-        lambda p: wn.loss_fn(p, cfg, toks, speaker=sp, use_fused=True,
-                             interpret=True)[0])(p)
-    pp_l, pp_g = jax.jit(jax.value_and_grad(
-        lambda p: pp.loss_fn_pp(p, cfg, mesh, toks, speaker=sp,
-                                interpret=True)[0]))(p)
-    np.testing.assert_allclose(float(pp_l), float(ref_l), rtol=2e-4,
-                               atol=2e-4)
-    for (ka, a), (kb, b) in zip(
-            jax.tree_util.tree_flatten_with_path(ref_g)[0],
-            jax.tree_util.tree_flatten_with_path(pp_g)[0]):
-        a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
-        scale = max(np.abs(a).max(), 1e-3)
-        np.testing.assert_allclose(b / scale, a / scale, atol=0.02,
-                                   err_msg=str(ka))
-
-
-def test_sp_fused_with_speaker_matches_unsharded(monkeypatch):
-    """Overlap-discard seq-parallel fused path + speaker: the time-constant
-    offsets need no halo; grads must match the unsharded fused loss."""
-    from wavenet_tpu.parallel import seqpar
-    from wavenet_tpu.parallel.mesh import make_mesh
-    cfg = cfg_(num_blocks=2, max_dilation=8, batch_size=2,
-               train_window=128, seq_parallel=2, data_parallel=1)
-    mesh = make_mesh(cfg)
-    assert seqpar.sp_fused_supported(cfg, 128, 2)
-    p = wn.init_params(cfg, jax.random.PRNGKey(0))
-    window = jax.random.randint(jax.random.PRNGKey(1), (2, 129), 0, 256)
-    inputs, targets = window[:, :-1], window[:, 1:]
-    sp = jnp.asarray([1, 3], jnp.int32)
-
-    def ref(p):
-        return wn.loss_fn(p, cfg, window, speaker=sp, use_fused=True,
-                          interpret=True)[0]
-
-    ref_l, ref_g = jax.value_and_grad(ref)(p)
-    sp_l, sp_g = jax.jit(jax.value_and_grad(
-        lambda p: seqpar.loss_fn_sp_fused(p, cfg, mesh, inputs, targets,
-                                          speaker=sp,
-                                          interpret=True)[0]))(p)
-    np.testing.assert_allclose(float(sp_l), float(ref_l), rtol=2e-5,
-                               atol=2e-5)
-    for (ka, a), (kb, b) in zip(
-            jax.tree_util.tree_flatten_with_path(ref_g)[0],
-            jax.tree_util.tree_flatten_with_path(sp_g)[0]):
-        a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
-        scale = max(np.abs(a).max(), 1e-3)
-        np.testing.assert_allclose(b / scale, a / scale, atol=0.02,
-                                   err_msg=str(ka))
 
 
 def test_seqpar_with_speaker_matches_unsharded():

@@ -1,8 +1,8 @@
 """Configurable causal-conv width (SURVEY.md §2 #3: "kernel-2, width
 configurable").  kernel_size K > 2 runs on the XLA scan paths — model
 forward, fast ring decode, naive oracle, data-parallel training — while the
-Pallas kernels, pipeline/sequence parallelism, and the distributed decoder
-stay contractually width-2 and must REFUSE wider configs at routing time.
+GPU decode kernel, sequence parallelism, and the distributed decoder stay
+contractually width-2 and must REFUSE wider configs at routing time.
 
 The correctness spine is the same as the K=2 suite: the cached-ring decoder
 (rings of length d*(K-1), taps at d..(K-1)d) must reproduce the full-window
@@ -193,8 +193,8 @@ def test_training_learns_and_grads_flow():
 
 
 def test_dataparallel_loss_matches():
-    from wavenet_tpu.parallel import dataparallel as dp
-    from wavenet_tpu.parallel.mesh import make_mesh
+    from jax.sharding import NamedSharding, PartitionSpec as P
+    from wavenet_tpu.parallel.mesh import DATA_AXIS, make_mesh
     cfg = cfg_(K=3, compute_dtype="bfloat16", data_parallel=4,
                batch_size=8, train_window=64)
     mesh = make_mesh(cfg)
@@ -202,7 +202,8 @@ def test_dataparallel_loss_matches():
     toks = jax.random.randint(jax.random.PRNGKey(1), (8, 65), 0,
                               cfg.quantization_channels)
     ref, _ = wn.loss_fn(p, cfg, toks)
-    got, _ = jax.jit(lambda p, t: dp.loss_fn_dp(p, cfg, mesh, t))(p, toks)
+    sharded = jax.device_put(toks, NamedSharding(mesh, P(DATA_AXIS, None)))
+    got, _ = jax.jit(lambda p, t: wn.loss_fn(p, cfg, t))(p, sharded)
     np.testing.assert_allclose(float(got), float(ref), rtol=2e-5)
 
 
@@ -222,20 +223,15 @@ def test_checkpoint_roundtrip(tmp_path):
 def test_width2_only_paths_refuse():
     """Routing contracts: every width-2-only subsystem refuses K>2 configs
     instead of computing wrong answers."""
-    from wavenet_tpu.ops.pallas import decode as pdec
-    from wavenet_tpu.ops.pallas import decode_wide as pwide
-    from wavenet_tpu.ops.pallas import train_stack as ts
-    from wavenet_tpu.parallel import distdecode, pipeline, seqpar
+    from wavenet_tpu import route
+    from wavenet_tpu.ops.pallas import decode_gpu
+    from wavenet_tpu.parallel import distdecode, seqpar
     from wavenet_tpu.parallel.mesh import make_mesh
     cfg = cfg_(K=3, residual_channels=64, skip_channels=64,
                compute_dtype="bfloat16")
-    assert pdec.plan_tiles(cfg, 8) == (0, 0)
-    assert not pdec.fits_vmem(cfg, 8)
-    wide = cfg.replace(residual_channels=128)
-    assert not pwide.supported(wide)
-    assert not ts.supported(cfg, 4096)
-    assert not pipeline.supported(cfg, 4096, 2)
-    assert not seqpar.sp_fused_supported(cfg, 4096, 2)
+    assert not decode_gpu.supported(cfg)
+    assert route.decode(cfg, platform="gpu") == route.SCAN
+    assert decode_gpu.supported(cfg.replace(kernel_size=2))
     mesh = make_mesh(cfg.replace(data_parallel=2))
     with pytest.raises(ValueError, match="width-2"):
         distdecode.generate_sharded(
@@ -293,8 +289,8 @@ def test_serving_engine_serves_k3():
 def test_decode_unroll_with_wide_kernel_size():
     """The scan decoder's layer-unroll knob composes with the K>2 tap loop:
     on CPU the unrolled trajectory is bit-identical (mirrors the K=2 gate
-    in test_compcache; on TPU near-tie divergence is allowed by contract)."""
-    if jax.default_backend() != "cpu":
+    in test_compcache; on a GPU near-tie divergence is allowed by contract)."""
+    if jax.default_backend() == "gpu":
         pytest.skip("CPU-only bit-equality contract")
     cfg = cfg_(K=3)
     p = wn.init_params(cfg, jax.random.PRNGKey(0))

@@ -1,6 +1,7 @@
-"""Pallas whole-loop decode kernel vs the XLA scan decoder (SURVEY.md §4
-"Kernel": each Pallas kernel vs its pure-jnp reference, interpret-mode on CPU
-so tests run without a TPU)."""
+"""Whole-loop GPU decode kernel (ops/pallas/decode_gpu.py) vs the XLA scan
+decoder, run in the Pallas interpreter on the CPU.  On the CPU the two
+agree bit for bit, so these tests compare tokens exactly; on the card the
+comparison is within a tolerance (chip_smoke.py)."""
 
 import jax
 import jax.numpy as jnp
@@ -9,7 +10,8 @@ import pytest
 
 from wavenet_tpu.config import WaveNetConfig
 from wavenet_tpu.models import wavenet as wn
-from wavenet_tpu.ops.pallas import decode as pdec
+from wavenet_tpu.ops import rng
+from wavenet_tpu.ops.pallas import decode_gpu
 
 
 def cfg_(**kw):
@@ -34,6 +36,12 @@ def xla_greedy_rollout(params, cfg, token0, n):
     return jnp.moveaxis(toks, 0, 1)            # [B, n]
 
 
+def _chunk(params, cfg, state, token, n, temperature=0.0, seeds=0, **kw):
+    seeds = rng.as_row_seeds(seeds, token.shape[0])
+    return decode_gpu.decode_chunk(params, cfg, state, token, seeds, n,
+                                   temperature, interpret=True, **kw)
+
+
 def test_greedy_equivalence_interpret():
     cfg = cfg_()
     params = wn.init_params(cfg, jax.random.PRNGKey(0))
@@ -41,38 +49,22 @@ def test_greedy_equivalence_interpret():
     token0 = jnp.full((B,), 128, jnp.int32)
 
     ref = np.asarray(xla_greedy_rollout(params, cfg, token0, N))
-
-    _, sum_d = pdec._ring_offsets(cfg)
-    rings = jnp.zeros((sum_d, cfg.residual_channels, B), jnp.bfloat16)
-    init = jnp.concatenate([token0[:, None], jnp.zeros((B, 1), jnp.int32)], 1)
-    toks, rings2, carry = pdec.decode_chunk(
-        params, cfg, rings, init, jnp.int32(0), jnp.int32(0), N,
-        temperature=0.0, interpret=True)
-    got = np.asarray(toks)
-
-    np.testing.assert_array_equal(got, ref)
-    np.testing.assert_array_equal(np.asarray(carry)[:, 0], ref[:, -1])
+    state, nxt, toks = _chunk(params, cfg, wn.decode_init(cfg, B), token0, N)
+    np.testing.assert_array_equal(np.asarray(toks), ref)
+    np.testing.assert_array_equal(np.asarray(nxt), ref[:, -1])
+    assert int(state.t) == N
 
 
 def test_chunked_continuation_interpret():
-    """Two chunks of N/2 must equal one chunk of N (ring state carries)."""
+    """Two chunks of N/2 must equal one chunk of N (state carries)."""
     cfg = cfg_()
     params = wn.init_params(cfg, jax.random.PRNGKey(0))
     B, N = 2, 32
-    init = jnp.concatenate([jnp.full((B, 1), 128, jnp.int32),
-                            jnp.zeros((B, 1), jnp.int32)], 1)
-    _, sum_d = pdec._ring_offsets(cfg)
-    rings0 = jnp.zeros((sum_d, cfg.residual_channels, B), jnp.bfloat16)
-
-    one, _, _ = pdec.decode_chunk(params, cfg, rings0, init, jnp.int32(0),
-                                  jnp.int32(0), N, temperature=0.0,
-                                  interpret=True)
-    a, rings, carry = pdec.decode_chunk(params, cfg, rings0, init,
-                                        jnp.int32(0), jnp.int32(0), N // 2,
-                                        temperature=0.0, interpret=True)
-    b, _, _ = pdec.decode_chunk(params, cfg, rings, carry, jnp.int32(N // 2),
-                                jnp.int32(0), N // 2, temperature=0.0,
-                                interpret=True)
+    tok = jnp.full((B,), 128, jnp.int32)
+    st0 = wn.decode_init(cfg, B)
+    _, _, one = _chunk(params, cfg, st0, tok, N, 1.0, seeds=5)
+    st, nxt, a = _chunk(params, cfg, st0, tok, N // 2, 1.0, seeds=5)
+    _, _, b = _chunk(params, cfg, st, nxt, N // 2, 1.0, seeds=5)
     np.testing.assert_array_equal(
         np.asarray(jnp.concatenate([a, b], axis=1)), np.asarray(one))
 
@@ -80,8 +72,8 @@ def test_chunked_continuation_interpret():
 def test_sampled_tokens_in_range_interpret():
     cfg = cfg_()
     params = wn.init_params(cfg, jax.random.PRNGKey(0))
-    toks = pdec.generate_pallas(params, cfg, jax.random.PRNGKey(3),
-                                num_samples=24, batch=2, interpret=True)
+    toks = decode_gpu.generate(params, cfg, jax.random.PRNGKey(3),
+                               num_samples=24, batch=2, interpret=True)
     t = np.asarray(toks)
     assert t.shape == (2, 24)
     assert (t >= 0).all() and (t < 256).all()
@@ -89,65 +81,20 @@ def test_sampled_tokens_in_range_interpret():
     assert len(np.unique(t)) > 1
 
 
-def test_fits_vmem_budget():
-    from wavenet_tpu.config import conditional, fastgen_bench, full
-    assert pdec.fits_vmem(cfg_(), batch=2)
-    # round 2: batch tiling serves the mandated fastgen B=64 config
-    # in-kernel (BASELINE config 4 — round 1 topped out at B=32)
-    bt, tc = pdec.plan_tiles(fastgen_bench(), 64)
-    assert bt > 0 and 64 % bt == 0
-    assert pdec.fits_vmem(fastgen_bench(), batch=64)
-    # and the conditional vocoder decodes in-kernel too (config 5)
-    assert pdec.fits_vmem(conditional(), batch=8)
-    # every tile must genuinely fit the budget
-    assert pdec._tile_bytes(fastgen_bench(), bt, tc) <= pdec.VMEM_BUDGET
-    # the full preset CANNOT decode in-kernel: Mosaic lane-pads the
-    # resident ring block to 128 lanes at R >= 128, which costs 134 MiB at
-    # any batch tile (measured hardware OOM, round 3) — the planner must
-    # refuse so generate_auto falls back to the XLA scan instead of a
-    # runtime compile failure
-    assert not pdec.fits_vmem(full(), batch=8)
-    # wide-R models DO fit when sum_d is small enough to absorb the padding
-    from wavenet_tpu.config import WaveNetConfig
-    wide = WaveNetConfig(num_blocks=2, max_dilation=64,
-                         residual_channels=128, skip_channels=256,
-                         compute_dtype="bfloat16")
-    assert pdec.fits_vmem(wide, batch=8)
-    # lane padding rounds UP, it never caps: at bt > 128 an R >= 128 ring
-    # block costs its TRUE bt lanes, so the planner must account max(bt,
-    # 128) or a batch=256 plan under-counts the rings by 2x and the
-    # per-launch vmem limit is undersized — hardware compile OOM instead
-    # of a bt=128 fallback (ADVICE r3).
-    sum_d = sum(wide.dilations)
-    extra_ring = 2 * (256 - 128) * sum_d * wide.residual_channels * 2
-    assert (pdec._tile_bytes(wide, 256, 8) - pdec._tile_bytes(wide, 128, 8)
-            >= extra_ring)
-    # and the planner consequently picks the bt=128 tile at batch=256
-    bt256, tc256 = pdec.plan_tiles(wide, 256)
-    assert bt256 == 128
-    assert pdec._tile_bytes(wide, bt256, tc256) <= pdec.VMEM_BUDGET
+@pytest.mark.parametrize("batch,padded", [(1, 16), (8, 16), (16, 16),
+                                          (17, 32), (64, 64)])
+def test_row_padding_to_tile(batch, padded):
+    """Rows pad to whole 16-row tiles (Triton's dot minimum); the pad rows
+    never reach the caller."""
+    assert decode_gpu.padded_rows(batch) == padded
+    assert padded % decode_gpu.BT == 0
 
 
-def test_streamed_blocks_counted_at_full_lane_width():
-    """Grid-streamed time blocks (tokens, mel features) are lane-padded to
-    128 by Mosaic whatever Bt is — measured on v5e, the mel y block's
-    scoped-VMEM OOM is exactly 2 * tc * M * 128 * 2B at every Bt in 1..8
-    (80 MiB at tc=2048 vs the 14 MiB-era limit).  The planner must account
-    that, or WaveNet.vocode (B=1, ~64k steps) OOMs on hardware (round 3
-    bug).  Every plan's tile bytes must fit the hardware-validated budget
-    so the per-launch vmem limit (sized to the plan) is honest."""
-    from wavenet_tpu.config import conditional, fastgen_bench
-    cfg = conditional()
-    for batch in (1, 8):
-        bt, tc = pdec.plan_tiles(cfg, batch)
-        assert bt > 0
-        # padded y stream block alone must fit the budget comfortably
-        y_block = 2 * 2 * tc * cfg.mel.num_mels * max(bt, 128)
-        assert y_block <= pdec.VMEM_BUDGET, (bt, tc, y_block)
-        assert pdec._tile_bytes(cfg, bt, tc) <= pdec.VMEM_BUDGET
-    # the mandated fastgen B=64 now decodes in ONE bt=64 launch (hardware
-    # sweep 2026-08-19: bit-exact, ~4x the serialized 4x bt=16 plan)
-    assert pdec.plan_tiles(fastgen_bench(), 64) == (64, 1024)
+@pytest.mark.parametrize("mels,padded", [(8, 16), (16, 16), (20, 32),
+                                         (80, 128), (128, 128)])
+def test_mel_padding_to_pow2(mels, padded):
+    """Mel channels pad to a power of two (Triton block shapes): 80 -> 128."""
+    assert decode_gpu.padded_mels(mels) == padded
 
 
 def test_priming_matches_xla():
@@ -171,66 +118,66 @@ def test_priming_matches_xla():
     (_, _), ref = jax.lax.scan(roll, (st, prime[:, -1]), None, length=N)
     ref = np.asarray(jnp.moveaxis(ref, 0, 1))
 
-    got = pdec.generate_pallas(params, cfg, jax.random.PRNGKey(0),
-                               num_samples=N, batch=B, prime_tokens=prime,
-                               temperature=0.0, interpret=True)
+    got = decode_gpu.generate(params, cfg, jax.random.PRNGKey(0),
+                              num_samples=N, batch=B, prime_tokens=prime,
+                              temperature=0.0, interpret=True)
     np.testing.assert_array_equal(np.asarray(got), ref)
 
 
 def test_batch_tiled_equals_single_tile_interpret():
-    """Forcing a small batch tile must not change greedy tokens (tiles share
-    weights, carry independent rings/carries)."""
+    """A batch spanning several 16-row tiles (with pad rows in the last)
+    greedy-decodes exactly like the scan: tiles share weights and carry
+    independent rings."""
     cfg = cfg_()
     params = wn.init_params(cfg, jax.random.PRNGKey(0))
-    B, N = 8, 24
-    token0 = jnp.full((B,), 128, jnp.int32)
+    B, N = 20, 24
+    token0 = jax.random.randint(jax.random.PRNGKey(4), (B,), 0, 256)
     ref = np.asarray(xla_greedy_rollout(params, cfg, token0, N))
-
-    bt, tc = pdec.plan_tiles(cfg, B)
-    assert bt == B                               # tiny model: one tile fits
-    _, sum_d = pdec._ring_offsets(cfg)
-    rings = jnp.zeros((sum_d, cfg.residual_channels, B), jnp.bfloat16)
-    init = jnp.concatenate([token0[:, None],
-                            jnp.zeros((B, 1), jnp.int32)], 1)
-    toks, _, carry = pdec.decode_chunk(
-        params, cfg, rings, init, jnp.int32(0), jnp.int32(0), N,
-        temperature=0.0, interpret=True, force_tiles=(2, 8))
+    assert decode_gpu.padded_rows(B) // decode_gpu.BT == 2
+    _, nxt, toks = _chunk(params, cfg, wn.decode_init(cfg, B), token0, N)
     np.testing.assert_array_equal(np.asarray(toks), ref)
-    np.testing.assert_array_equal(np.asarray(carry)[:, 0], ref[:, -1])
+    np.testing.assert_array_equal(np.asarray(nxt), ref[:, -1])
 
 
 def test_batch_tiled_sampling_matches_untiled_interpret():
-    """Sampled tokens must be IDENTICAL tiled vs untiled: the counter RNG is
-    keyed by the global batch index (SMEM col0), not the tile-local lane."""
+    """Sampled rows do not depend on the batch around them: the counter RNG
+    is keyed by each row's own seed, so rows of a two-tile batch equal the
+    same rows decoded alone."""
     cfg = cfg_()
     params = wn.init_params(cfg, jax.random.PRNGKey(0))
-    B, N = 8, 24
+    B, N = 18, 24
+    seeds = rng.derive_row_seeds(jnp.int32(11), B)
     key = jax.random.PRNGKey(11)
-    ref = pdec.generate_pallas(params, cfg, key, num_samples=N, batch=B,
-                               temperature=1.0, interpret=True)
-    got = pdec.generate_pallas(params, cfg, key, num_samples=N, batch=B,
-                               temperature=1.0, interpret=True,
-                               force_tiles=(2, 8))
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
+    whole = decode_gpu.generate(params, cfg, key, N, batch=B, seeds=seeds,
+                                temperature=1.0, interpret=True)
+    part = decode_gpu.generate(params, cfg, key, N, batch=3,
+                               seeds=seeds[15:], temperature=1.0,
+                               interpret=True)
+    np.testing.assert_array_equal(np.asarray(whole[15:]), np.asarray(part))
+
+
+def _mel_cfg():
+    from wavenet_tpu.config import MelConfig
+    return MelConfig(num_mels=8, hop_length=16, win_length=64,
+                     fmax=4000.0, upsample_factors=(4, 4))
+
+
+def _bf16_cond(params, y):
+    # the kernel's recipe: bf16 features and v_cond, f32 accumulation
+    return jnp.einsum("btm,lmgr->btlgr", y.astype(jnp.bfloat16),
+                      params["v_cond"].astype(jnp.bfloat16),
+                      preferred_element_type=jnp.float32)
 
 
 def test_conditional_decode_matches_xla_interpret():
     """In-kernel mel conditioning == the XLA scan decoder with cond_t."""
-    from wavenet_tpu.config import MelConfig
     from wavenet_tpu.models.conditioning import upsample_mel
-    mel_cfg = MelConfig(num_mels=8, hop_length=16, win_length=64,
-                        fmax=4000.0, upsample_factors=(4, 4))
-    cfg = cfg_(mel=mel_cfg)
+    cfg = cfg_(mel=_mel_cfg())
     params = wn.init_params(cfg, jax.random.PRNGKey(0))
     B, N = 2, 32
     mel = jax.random.normal(jax.random.PRNGKey(2), (B, 4, 8))
-    y = upsample_mel(params["upsampler"], mel_cfg, mel, N)      # [B, N, M]
-
-    # XLA reference: greedy rollout with per-step cond contributions
-    # mirror the kernel's MXU precision: bf16 inputs, f32 accumulation
-    cond = jnp.einsum("btm,lmgr->btlgr", y.astype(jnp.bfloat16),
-                      params["v_cond"].astype(jnp.bfloat16),
-                      preferred_element_type=jnp.float32)
+    y = upsample_mel(params["upsampler"], cfg.mel, mel, N)      # [B, N, M]
+    cond = _bf16_cond(params, y)
     st = wn.decode_init(cfg, B)
     tok = jnp.full((B,), 128, jnp.int32)
     outs = []
@@ -240,34 +187,23 @@ def test_conditional_decode_matches_xla_interpret():
         outs.append(tok)
     ref = np.asarray(jnp.stack(outs, axis=1))
 
-    _, sum_d = pdec._ring_offsets(cfg)
-    rings = jnp.zeros((sum_d, cfg.residual_channels, B), jnp.bfloat16)
-    init = jnp.concatenate([jnp.full((B, 1), 128, jnp.int32),
-                            jnp.zeros((B, 1), jnp.int32)], 1)
-    toks, _, _ = pdec.decode_chunk(params, cfg, rings, init, jnp.int32(0),
-                                   jnp.int32(0), N, temperature=0.0,
-                                   interpret=True, y=y)
+    _, _, toks = _chunk(params, cfg, wn.decode_init(cfg, B),
+                        jnp.full((B,), 128, jnp.int32), N, y=y)
     np.testing.assert_array_equal(np.asarray(toks), ref)
 
 
 def test_conditional_generate_pallas_with_priming_interpret():
-    from wavenet_tpu.config import MelConfig
     from wavenet_tpu.models.conditioning import upsample_mel
-    mel_cfg = MelConfig(num_mels=8, hop_length=16, win_length=64,
-                        fmax=4000.0, upsample_factors=(4, 4))
-    cfg = cfg_(mel=mel_cfg)
+    cfg = cfg_(mel=_mel_cfg())
     params = wn.init_params(cfg, jax.random.PRNGKey(0))
     B, P, N = 2, 9, 16
     prime = jax.random.randint(jax.random.PRNGKey(9), (B, P), 0, 256)
     total = P - 1 + N
     mel = jax.random.normal(jax.random.PRNGKey(2), (B, 4, 8))
-    y = upsample_mel(params["upsampler"], mel_cfg, mel, total)
+    y = upsample_mel(params["upsampler"], cfg.mel, mel, total)
+    cond = _bf16_cond(params, y)
 
     # XLA reference: teacher-force prime WITH cond, then greedy with cond
-    # mirror the kernel's MXU precision: bf16 inputs, f32 accumulation
-    cond = jnp.einsum("btm,lmgr->btlgr", y.astype(jnp.bfloat16),
-                      params["v_cond"].astype(jnp.bfloat16),
-                      preferred_element_type=jnp.float32)
     st = wn.decode_init(cfg, B)
     for t in range(P - 1):
         st, _ = wn.decode_step(params, cfg, st, prime[:, t],
@@ -280,9 +216,9 @@ def test_conditional_generate_pallas_with_priming_interpret():
         outs.append(tok)
     ref = np.asarray(jnp.stack(outs, axis=1))
 
-    got = pdec.generate_pallas(params, cfg, jax.random.PRNGKey(0),
-                               num_samples=N, batch=B, prime_tokens=prime,
-                               y=y, temperature=0.0, interpret=True)
+    got = decode_gpu.generate(params, cfg, jax.random.PRNGKey(0),
+                              num_samples=N, batch=B, prime_tokens=prime,
+                              y=y, temperature=0.0, interpret=True)
     np.testing.assert_array_equal(np.asarray(got), ref)
 
 
@@ -291,13 +227,15 @@ def test_priming_chunked_interpret():
     params = wn.init_params(cfg, jax.random.PRNGKey(0))
     B, P, N = 2, 9, 16
     prime = jax.random.randint(jax.random.PRNGKey(9), (B, P), 0, 256)
-    one = pdec.generate_pallas(params, cfg, jax.random.PRNGKey(0),
-                               num_samples=N, batch=B, prime_tokens=prime,
-                               temperature=0.0, interpret=True, chunk=64)
-    many = pdec.generate_pallas(params, cfg, jax.random.PRNGKey(0),
-                                num_samples=N, batch=B, prime_tokens=prime,
-                                temperature=0.0, interpret=True, chunk=8)
-    np.testing.assert_array_equal(np.asarray(one), np.asarray(many))
+    one = decode_gpu.generate(params, cfg, jax.random.PRNGKey(0),
+                              num_samples=N, batch=B, prime_tokens=prime,
+                              temperature=0.0, interpret=True)
+    many = list(decode_gpu.stream(params, cfg, jax.random.PRNGKey(0), N, 5,
+                                  batch=B, prime_tokens=prime,
+                                  temperature=0.0, interpret=True))
+    assert [c.shape[1] for c in many] == [5, 5, 5, 1]
+    np.testing.assert_array_equal(
+        np.asarray(jnp.concatenate(many, axis=1)), np.asarray(one))
 
 
 def test_generate_stream_matches_one_shot_interpret():
@@ -311,9 +249,9 @@ def test_generate_stream_matches_one_shot_interpret():
     sp = jnp.asarray([0, 2], jnp.int32)
     prime = jax.random.randint(jax.random.PRNGKey(8), (B, 11), 0, 256)
 
-    one = pdec.generate_pallas(params, cfg, key, N, batch=B,
-                               prime_tokens=prime, speaker=sp,
-                               temperature=1.0, interpret=True)
+    one = decode_gpu.generate(params, cfg, key, N, batch=B,
+                              prime_tokens=prime, speaker=sp,
+                              temperature=1.0, interpret=True)
     chunks = list(generate_stream(params, cfg, key, N, chunk_samples=16,
                                   batch=B, prime_tokens=prime, speaker=sp,
                                   temperature=1.0, interpret=True))
@@ -322,54 +260,49 @@ def test_generate_stream_matches_one_shot_interpret():
     np.testing.assert_array_equal(np.asarray(got), np.asarray(one))
 
 
-def test_non_pow2_chunk_hint_lowers(monkeypatch):
-    """A non-power-of-two `chunk` hint must still produce a time block
-    divisible by 8 (code-review finding: TC halving reached 62)."""
+def test_non_pow2_chunk_hint_lowers():
+    """Chunk and step counts need no alignment: a 37-step chunk over 100
+    steps streams [37, 37, 26] and equals the one-shot decode."""
     cfg = cfg_()
     params = wn.init_params(cfg, jax.random.PRNGKey(0))
-    toks = pdec.generate_pallas(params, cfg, jax.random.PRNGKey(1), 100,
-                                batch=1, chunk=1000, temperature=0.0,
-                                interpret=True)
-    assert toks.shape == (1, 100)
-    # the shared shrink helper keeps multiples of 8 with floor 8
-    assert pdec.shrink_tc(1000, 100) % 8 == 0
-    assert pdec.shrink_tc(9, 1) == 8
-    assert pdec.shrink_tc(2048, 3000) == 2048
+    one = decode_gpu.generate(params, cfg, jax.random.PRNGKey(1), 100,
+                              batch=1, temperature=0.0, interpret=True)
+    chunks = list(decode_gpu.stream(params, cfg, jax.random.PRNGKey(1), 100,
+                                    37, batch=1, temperature=0.0,
+                                    interpret=True))
+    assert [c.shape[1] for c in chunks] == [37, 37, 26]
+    np.testing.assert_array_equal(
+        np.asarray(jnp.concatenate(chunks, axis=1)), np.asarray(one))
 
 
-def test_long_prime_falls_back_to_scan():
-    """The teacher-forced prime block is VMEM-resident: fits_vmem must
-    reject primes that blow the budget, and generate_auto must route them
-    to the scan decoder instead of a Mosaic compile failure."""
-    from wavenet_tpu.generate.sampler import generate_auto
+def test_long_prime_stays_in_kernel():
+    """The prime streams from device memory, so a long prime has no size
+    limit; only its last token's successors are emitted."""
     cfg = cfg_()
     params = wn.init_params(cfg, jax.random.PRNGKey(0))
-    assert pdec.fits_vmem(cfg, 1, prime_len=100)
-    huge = 16 * 1024 * 1024                       # 64 MB of int32 tokens
-    assert not pdec.fits_vmem(cfg, 1, prime_len=huge)
-    with pytest.raises(ValueError, match="VMEM"):
-        pdec.generate_pallas(params, cfg, jax.random.PRNGKey(1), 8, batch=1,
-                             prime_tokens=jnp.zeros((1, huge), jnp.int32),
-                             interpret=True)
+    prime = jax.random.randint(jax.random.PRNGKey(2), (1, 300), 0, 256)
+    got = decode_gpu.generate(params, cfg, jax.random.PRNGKey(1), 8, batch=1,
+                              prime_tokens=prime, temperature=0.0,
+                              interpret=True)
+    ref = wn.generate(params, cfg, jax.random.PRNGKey(1), 8, batch=1,
+                      prime_tokens=prime, temperature=0.0)
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
 
 
 def test_generate_stream_with_mel_matches_one_shot_interpret():
-    """Streaming slices the upsampled mel per chunk (padding the tail);
-    the chunks must concatenate to the one-shot conditional tokens."""
-    from wavenet_tpu.config import MelConfig
+    """Streaming slices the upsampled mel per chunk; the chunks must
+    concatenate to the one-shot conditional tokens."""
     from wavenet_tpu.generate.sampler import generate_stream
     from wavenet_tpu.models.conditioning import upsample_mel
-    mel_cfg = MelConfig(num_mels=8, hop_length=16, win_length=64,
-                        fmax=4000.0, upsample_factors=(4, 4))
-    cfg = cfg_(mel=mel_cfg)
+    cfg = cfg_(mel=_mel_cfg())
     params = wn.init_params(cfg, jax.random.PRNGKey(0))
     B, N = 2, 48
     key = jax.random.PRNGKey(9)
     mel = jax.random.normal(jax.random.PRNGKey(10), (B, 4, 8))
-    y = upsample_mel(params["upsampler"], mel_cfg, mel, N)
+    y = upsample_mel(params["upsampler"], cfg.mel, mel, N)
 
-    one = pdec.generate_pallas(params, cfg, key, N, batch=B, y=y,
-                               temperature=1.0, interpret=True)
+    one = decode_gpu.generate(params, cfg, key, N, batch=B, y=y,
+                              temperature=1.0, interpret=True)
     chunks = list(generate_stream(params, cfg, key, N, chunk_samples=16,
                                   batch=B, y=y, temperature=1.0,
                                   interpret=True))
@@ -378,10 +311,9 @@ def test_generate_stream_with_mel_matches_one_shot_interpret():
         np.asarray(jnp.concatenate(chunks, axis=1)), np.asarray(one))
 
 
-def test_generate_stream_xla_fallback(monkeypatch):
-    """Configs past the kernel's VMEM plan must still stream (chunked
-    decode_step scans), emitting exactly what the one-shot XLA generate()
-    would — streaming is total, not kernel-gated."""
+def test_generate_stream_xla_fallback():
+    """The scan route streams too (chunked decode_step scans), emitting
+    exactly what the one-shot XLA generate() would."""
     from wavenet_tpu.generate import sampler
     cfg = cfg_(global_classes=3, global_channels=8)
     params = wn.init_params(cfg, jax.random.PRNGKey(0))
@@ -390,8 +322,6 @@ def test_generate_stream_xla_fallback(monkeypatch):
     sp = jnp.asarray([1, 2], jnp.int32)
     prime = jax.random.randint(jax.random.PRNGKey(4), (B, 7), 0, 256)
 
-    monkeypatch.setattr(pdec, "fits_vmem",
-                        lambda *a, **k: False)       # force the fallback
     chunks = list(sampler.generate_stream(params, cfg, key, N,
                                           chunk_samples=16, batch=B,
                                           prime_tokens=prime, speaker=sp))
@@ -402,21 +332,17 @@ def test_generate_stream_xla_fallback(monkeypatch):
     np.testing.assert_array_equal(np.asarray(got), np.asarray(one))
 
 
-def test_generate_stream_xla_fallback_mel(monkeypatch):
-    """Mel-conditioned fallback streaming: y features are projected once and
-    consumed chunk by chunk via the state's step counter."""
-    from wavenet_tpu.config import MelConfig
+def test_generate_stream_xla_fallback_mel():
+    """Mel-conditioned scan-route streaming: y features are projected per
+    chunk and consumed via the state's step counter."""
     from wavenet_tpu.generate import sampler
     from wavenet_tpu.models.conditioning import project_cond
-    mel_cfg = MelConfig(num_mels=8, hop_length=16, win_length=64,
-                        upsample_factors=(4, 4))
-    cfg = cfg_(mel=mel_cfg)
+    cfg = cfg_(mel=_mel_cfg())
     params = wn.init_params(cfg, jax.random.PRNGKey(0))
     B, N = 2, 32
     key = jax.random.PRNGKey(5)
-    y = jax.random.normal(jax.random.PRNGKey(6), (B, N, mel_cfg.num_mels))
+    y = jax.random.normal(jax.random.PRNGKey(6), (B, N, cfg.mel.num_mels))
 
-    monkeypatch.setattr(pdec, "fits_vmem", lambda *a, **k: False)
     chunks = list(sampler.generate_stream(params, cfg, key, N,
                                           chunk_samples=10, batch=B, y=y))
     got = jnp.concatenate(chunks, axis=1)
@@ -425,66 +351,40 @@ def test_generate_stream_xla_fallback_mel(monkeypatch):
     np.testing.assert_array_equal(np.asarray(got), np.asarray(one))
 
 
-def test_decode_planner_fuzz(monkeypatch):
-    """Planner invariants over random configs (the decode twin of
-    test_pallas_train.py::test_planner_fuzz): every plan respects the VMEM
-    model, tile divisibility, and the Mosaic time-block constraint, across
-    budgets — a config edge must degrade to (0, 0), never to an infeasible
-    or misaligned plan."""
-    from wavenet_tpu.config import MelConfig
-    rng = np.random.RandomState(11)
+def test_supported_fuzz():
+    """supported() over random configs: exactly the width-2, bf16,
+    power-of-two-width configs without an embed projection."""
+    r = np.random.RandomState(11)
     for _ in range(60):
-        kw = dict(
-            num_blocks=int(rng.randint(1, 5)),
-            max_dilation=int(2 ** rng.randint(3, 10)),
-            residual_channels=int(2 ** rng.randint(3, 8)),
-            skip_channels=int(2 ** rng.randint(3, 8)),
-        )
-        if rng.rand() < 0.3:
-            kw["mel"] = MelConfig(num_mels=int(rng.choice([8, 80])),
-                                  hop_length=64, win_length=256,
-                                  upsample_factors=(8, 8))
-        if rng.rand() < 0.3:
-            kw["global_classes"] = int(rng.randint(2, 9))
-        cfg = WaveNetConfig(**kw)
-        batch = int(rng.choice([1, 2, 3, 8, 24, 64, 96, 256]))
-        budget = int(rng.choice([1, 4, 12, 64])) * 1024 * 1024
-        monkeypatch.setattr(pdec, "VMEM_BUDGET", budget)
-        bt, tc = pdec.plan_tiles(cfg, batch)
-        if bt == 0:
-            assert tc == 0
-            assert not pdec.fits_vmem(cfg, batch)
-            continue
-        assert batch % bt == 0
-        assert tc % 8 == 0 and tc >= 8
-        assert pdec._tile_bytes(cfg, bt, tc) <= budget
-        assert pdec.fits_vmem(cfg, batch)
-        # a prime block can only shrink feasibility, never crash
-        assert pdec.fits_vmem(cfg, batch, prime_len=10 ** 9) in (False, True)
-        # shrink_tc keeps the Mosaic constraint and never grows
-        for want in (1, 7, 8, 100, tc, 4 * tc):
-            s = pdec.shrink_tc(tc, want)
-            assert s % 8 == 0 and 8 <= s <= max(tc, 8)
+        R = int(2 ** r.randint(2, 9))
+        S = int(2 ** r.randint(2, 9))
+        K = int(r.choice([2, 2, 3]))
+        dt = str(r.choice(["bfloat16", "float32"]))
+        causal = None if r.rand() < 0.8 else R * 2
+        cfg = WaveNetConfig(num_blocks=1, max_dilation=8,
+                            residual_channels=R, skip_channels=S,
+                            kernel_size=K, compute_dtype=dt,
+                            causal_channels=causal)
+        want = (K == 2 and dt == "bfloat16" and causal is None
+                and R >= 16 and S >= 16)
+        assert decode_gpu.supported(cfg) == want, cfg
 
 
 def test_generate_stream_mel_plus_speaker_interpret():
     """Streaming with BOTH local (mel) and global (speaker) conditioning in
     one model: chunks concatenate to exactly the one-shot kernel tokens."""
-    from wavenet_tpu.config import MelConfig
     from wavenet_tpu.generate.sampler import generate_stream
-    mel_cfg = MelConfig(num_mels=8, hop_length=16, win_length=64,
-                        upsample_factors=(4, 4))
-    cfg = cfg_(mel=mel_cfg, global_classes=3, global_channels=8)
+    from wavenet_tpu.models.conditioning import upsample_mel
+    cfg = cfg_(mel=_mel_cfg(), global_classes=3, global_channels=8)
     params = wn.init_params(cfg, jax.random.PRNGKey(0))
     B, N = 2, 48
     key = jax.random.PRNGKey(7)
     sp = jnp.asarray([0, 2], jnp.int32)
-    from wavenet_tpu.models.conditioning import upsample_mel
     mel = jax.random.normal(jax.random.PRNGKey(2), (B, 4, 8))
-    y = upsample_mel(params["upsampler"], mel_cfg, mel, N)
+    y = upsample_mel(params["upsampler"], cfg.mel, mel, N)
 
-    one = pdec.generate_pallas(params, cfg, key, N, batch=B, y=y,
-                               speaker=sp, interpret=True)
+    one = decode_gpu.generate(params, cfg, key, N, batch=B, y=y,
+                              speaker=sp, interpret=True)
     chunks = list(generate_stream(params, cfg, key, N, chunk_samples=16,
                                   batch=B, y=y, speaker=sp, interpret=True))
     got = jnp.concatenate(chunks, axis=1)
@@ -492,46 +392,37 @@ def test_generate_stream_mel_plus_speaker_interpret():
 
 
 def test_greedy_long_matches_scan():
-    """1024 greedy steps bit-equal to the XLA scan — the round-4 embed fix's
-    regression guard.  Rounds 1-3 pre-rounded the embed tables to bf16 and
-    re-rounded the one-hot-dot sum: one bf16 ulp off embed_tokens on ~37%
-    of (token, prev) pairs, flipping greedy argmax at near-ties (first
-    divergence ~step 104 on this config).  The f32-selection embed makes
-    the kernel's x bit-identical to the scan's, so greedy holds at LENGTH,
-    not just at the short horizons the earlier tests used."""
+    """1024 greedy steps equal to the XLA scan on the CPU: the embedding
+    is a row gather from the float32 tables, summed and rounded once like
+    embed_tokens, so x matches the scan's bit for bit and greedy holds at
+    length, not just at short horizons."""
     cfg = WaveNetConfig(num_blocks=1, max_dilation=32, residual_channels=64,
                         skip_channels=64, compute_dtype="bfloat16")
     params = wn.init_params(cfg, jax.random.PRNGKey(0))
     key = jax.random.PRNGKey(1)
     B, N = 4, 1024
-    tk = pdec.generate_pallas(params, cfg, key, N, batch=B, temperature=0.0,
-                              interpret=True)
+    tk = decode_gpu.generate(params, cfg, key, N, batch=B, temperature=0.0,
+                             interpret=True)
     ts = wn.generate(params, cfg, key, N, batch=B, temperature=0.0)
     np.testing.assert_array_equal(np.asarray(tk), np.asarray(ts))
 
 
 def test_embed_proj_configs_route_to_scan():
-    """causal_channels != R creates w_embed_proj; both kernels fold the
-    projection into the f32 embed tables, which rounds differently from
-    the scan's bf16 gather+matmul — so such configs must NOT take a
-    kernel route (bit-equality contract).  The scan serves them."""
-    from wavenet_tpu.ops.pallas import decode_wide as pwide
+    """causal_channels != R creates w_embed_proj, which the kernel does not
+    implement; such configs route to the scan, which serves them."""
+    from wavenet_tpu import route
+    from wavenet_tpu.generate.sampler import generate_auto
 
     cfg = cfg_(causal_channels=32)
     assert cfg.embed_channels != cfg.residual_channels
-    assert pdec.plan_tiles(cfg, 4) == (0, 0)
-    assert not pdec.fits_vmem(cfg, 4)
-
-    wide = WaveNetConfig(num_blocks=2, max_dilation=8,
-                         residual_channels=128, skip_channels=128,
-                         causal_channels=64)
-    assert not pwide.supported(wide)
-    assert pwide.plan_tiles(wide, 4) == (0, 0)
-
-    # the scan route still samples fine end-to-end
+    assert not decode_gpu.supported(cfg)
+    assert route.decode(cfg, platform="gpu") == route.SCAN
     params = wn.init_params(cfg, jax.random.PRNGKey(0))
     assert "w_embed_proj" in params
-    from wavenet_tpu.generate.sampler import generate_auto
-    toks = generate_auto(params, cfg, jax.random.PRNGKey(1), 16, batch=2)
+    with pytest.raises(ValueError, match="not supported"):
+        decode_gpu.generate(params, cfg, jax.random.PRNGKey(1), 8,
+                            interpret=True)
+    toks = generate_auto(params, cfg, jax.random.PRNGKey(1), 16, batch=2,
+                         interpret=True)
     ref = wn.generate(params, cfg, jax.random.PRNGKey(1), 16, batch=2)
     assert jnp.array_equal(toks, ref)

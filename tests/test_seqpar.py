@@ -79,87 +79,6 @@ def test_sp_rejects_too_short_shards():
         seqpar.check_seq_shardable(cfg, mesh, 64)   # 64/8=8 < maxd=32
 
 
-def _fused_ref_loss(p, cfg, inputs, targets, mel=None):
-    """Unsharded loss through the SAME fused kernel path sp-fused uses."""
-    from wavenet_tpu.ops.pallas import train_stack as ts
-    prev = jnp.pad(inputs[:, :-1], ((0, 0), (1, 0)))
-    x = wn.embed_tokens(p, cfg, inputs, prev)
-    y = None
-    if cfg.mel is not None:
-        from wavenet_tpu.models.conditioning import upsample_mel
-        y = upsample_mel(p["upsampler"], cfg.mel, mel, inputs.shape[1])
-    skip = ts.forward_skip_fused(p, cfg, x, interpret=True, y=y)
-    logits = wn.head_logits(p, cfg, skip)
-    logp = jax.nn.log_softmax(logits, -1)
-    return jnp.mean(-jnp.take_along_axis(logp, targets[..., None], -1)[..., 0])
-
-
-def test_sp_fused_supported_gate():
-    cfg = cfg_()
-    assert seqpar.sp_fused_supported(cfg, 128, 2)
-    assert not seqpar.sp_fused_supported(cfg, 128, 1)    # not sharded
-    assert not seqpar.sp_fused_supported(cfg, 100, 2)    # untileable local T
-    # local window shorter than the warmup halo
-    big = cfg_(num_blocks=2, max_dilation=64)            # rf = 254 > 64
-    assert not seqpar.sp_fused_supported(big, 128, 2)
-
-
-@pytest.mark.parametrize("sp,dp", [(2, 2), (4, 1)])
-def test_sp_fused_loss_and_grads_match_unsharded_fused(sp, dp):
-    """Overlap-discard through the fused kernel == the unsharded fused
-    kernel, loss AND parameter gradients (VERDICT r1 next-steps #3)."""
-    cfg = cfg_(seq_parallel=sp, data_parallel=dp, compute_dtype="bfloat16")
-    mesh = make_mesh(cfg)
-    p = wn.init_params(cfg, jax.random.PRNGKey(0))
-    # NONZERO biases: zero-init hides the shard-0 phantom-halo bias injection
-    # (a zero-filled halo row still gets b/b_res added — caught in round 2)
-    for k in ("b", "b_res", "b_skip"):
-        p[k] = p[k] + 0.1 * jax.random.normal(jax.random.PRNGKey(7),
-                                              p[k].shape, p[k].dtype)
-    window = jax.random.randint(jax.random.PRNGKey(1), (2, 129), 0, 256)
-    inputs, targets = window[:, :-1], window[:, 1:]
-
-    ref_l, ref_g = jax.value_and_grad(
-        lambda p: _fused_ref_loss(p, cfg, inputs, targets))(p)
-    sp_l, sp_g = jax.jit(jax.value_and_grad(
-        lambda p: seqpar.loss_fn_sp_fused(p, cfg, mesh, inputs, targets,
-                                          interpret=True)[0]))(p)
-
-    np.testing.assert_allclose(float(sp_l), float(ref_l), rtol=2e-6)
-    for (ka, a), (kb, b) in zip(
-            jax.tree.flatten_with_path(ref_g)[0],
-            jax.tree.flatten_with_path(sp_g)[0]):
-        a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
-        np.testing.assert_allclose(b, a, atol=5e-5, rtol=1e-4,
-                                   err_msg=str(ka))
-
-
-def test_sp_fused_conditional_matches_unsharded_fused():
-    from wavenet_tpu.config import MelConfig
-    mel_cfg = MelConfig(num_mels=8, hop_length=16, win_length=64,
-                        fmax=4000.0, upsample_factors=(4, 4))
-    cfg = cfg_(seq_parallel=2, data_parallel=2, mel=mel_cfg,
-               compute_dtype="bfloat16")
-    mesh = make_mesh(cfg)
-    p = wn.init_params(cfg, jax.random.PRNGKey(0))
-    window = jax.random.randint(jax.random.PRNGKey(1), (2, 129), 0, 256)
-    mel = jax.random.normal(jax.random.PRNGKey(2), (2, 8, 8))
-    inputs, targets = window[:, :-1], window[:, 1:]
-
-    ref_l, ref_g = jax.value_and_grad(
-        lambda p: _fused_ref_loss(p, cfg, inputs, targets, mel=mel))(p)
-    sp_l, sp_g = jax.jit(jax.value_and_grad(
-        lambda p: seqpar.loss_fn_sp_fused(p, cfg, mesh, inputs, targets,
-                                          mel=mel, interpret=True)[0]))(p)
-    np.testing.assert_allclose(float(sp_l), float(ref_l), rtol=2e-6)
-    for (ka, a), (kb, b) in zip(
-            jax.tree.flatten_with_path(ref_g)[0],
-            jax.tree.flatten_with_path(sp_g)[0]):
-        a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
-        np.testing.assert_allclose(b, a, atol=5e-5, rtol=1e-4,
-                                   err_msg=str(ka))
-
-
 def test_trainer_with_seq_parallel_matches_single_device():
     from wavenet_tpu.audio.dataset import AudioDataset
     from wavenet_tpu.training.trainer import Trainer

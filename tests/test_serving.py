@@ -2,7 +2,7 @@
 microbatching synthesis server.
 
 The reference deploys by shipping HDF5 weights + model code rebuilt per
-process (SURVEY.md §3.4); the TPU-native counterparts are a frozen
+process (SURVEY.md §3.4); the counterparts here are a frozen
 jax.export artifact and an engine that keeps one compiled decoder hot and
 microbatches concurrent requests into it.  Covered:
 
@@ -64,15 +64,14 @@ def test_aot_roundtrip_unconditional(tmp_path):
 
 
 def test_aot_multi_platform_export(tmp_path):
-    """platforms=("cpu","tpu") cross-lowers once; the artifact still runs
-    on the CPU backend and records both targets."""
+    """The default export cross-lowers for ("cpu", "cuda") once; the
+    artifact still runs on the CPU backend and records both targets."""
     cfg = cfg_()
     params = wn.init_params(cfg, jax.random.PRNGKey(0))
     path = str(tmp_path / "multi.wnx")
-    export_decoder(params, cfg, path, num_samples=16, batch=1,
-                   platforms=("cpu", "tpu"))
+    export_decoder(params, cfg, path, num_samples=16, batch=1)
     dec = load_decoder(path)
-    assert dec.platforms == ("cpu", "tpu")
+    assert dec.platforms == ("cpu", "cuda")
     want = np.asarray(wn.generate(params, cfg, jax.random.PRNGKey(0), 16,
                                   batch=1))
     np.testing.assert_array_equal(np.asarray(dec.generate(seed=0)), want)

@@ -246,8 +246,9 @@ def test_ema_checkpoint_cross_compat(tmp_path):
 
 def test_restore_across_mesh_shapes(tmp_path):
     """Elastic recovery: a checkpoint saved on one mesh shape restores into
-    a trainer built over a DIFFERENT mesh (orbax re-shards to the target's
-    NamedShardings) and training continues with identical params."""
+    a trainer built over a DIFFERENT mesh (the checkpointer places every
+    leaf onto the target's NamedShardings) and training continues with
+    identical params."""
     import dataclasses
     ds_cfg = micro_cfg()
     ds = AudioDataset.synthetic(ds_cfg, num_clips=2)

@@ -3,7 +3,7 @@
 verdict #6: the flagship config had bench windows only — no committed
 training run).
 
-What it does (one v5e chip, fused five-group kernels, remat on):
+What it does (one GPU, remat on):
 
   1. train the `full` preset (4x1..512, 128/256 ch, B=8, W=8192) for
      `steps` steps on a deterministically regenerated 256-clip synthetic
@@ -14,15 +14,15 @@ What it does (one v5e chip, fused five-group kernels, remat on):
      a TRAJECTORY, not an endpoint (round-4 verdict #7);
   2. held-out bits/sample on every corpus_eval clip (teacher-forced
      score, the quantity the loss optimizes, on unseen data);
-  3. generate a free-running sample wav THROUGH THE WIDE-R DECODE KERNEL
-     (ops/pallas/decode_wide.py) — the round-4 flagship decode path — plus
-     a short primed continuation of a held-out clip.
+  3. generate a free-running sample wav through the decode route the
+     router picks (`wavenet_tpu.route.decode`: the GPU decode kernel on a
+     GPU), plus a short primed continuation of a held-out clip.
 
 Artifacts under runs/evidence/full/: metrics.jsonl, scores.json,
 trajectory.json, loss_curve.png, sample_free.wav, sample_primed.wav,
 README.md.
 
-Usage: python tools/full_evidence.py [steps]     (default 20000; TPU)
+Usage: python tools/full_evidence.py [steps]     (default 20000; GPU)
        python tools/full_evidence.py resume      (redo 2-3 from checkpoint)
 """
 
@@ -178,21 +178,20 @@ def main():
     except Exception as e:                          # matplotlib optional
         print(f"loss_curve skipped: {e!r}", flush=True)
 
-    # --- free-running + primed samples through the WIDE-R kernel ---
-    from wavenet_tpu.generate.sampler import tokens_to_waveform
-    from wavenet_tpu.ops.pallas import decode_wide as pwide
+    # --- free-running + primed samples through the routed decoder ---
+    from wavenet_tpu.generate.sampler import generate_auto, tokens_to_waveform
     params = model.params        # from_checkpoint loads the EMA by default
     n = 2 * cfg.sample_rate
-    toks = pwide.generate_wide(params, cfg, jax.random.PRNGKey(0), n,
-                               batch=1, temperature=1.0)
+    toks = generate_auto(params, cfg, jax.random.PRNGKey(0), n,
+                         batch=1, temperature=1.0)
     write_wav(os.path.join(ROOT, "sample_free.wav"),
               tokens_to_waveform(toks, cfg)[0], cfg.sample_rate)
     w, _ = read_wav(eval_paths[0], cfg.sample_rate)
     prime = mulaw.encode_np(w[:cfg.sample_rate],
                             cfg.quantization_channels)[None]
-    toks = pwide.generate_wide(params, cfg, jax.random.PRNGKey(1), n,
-                               batch=1, prime_tokens=jnp.asarray(prime),
-                               temperature=1.0)
+    toks = generate_auto(params, cfg, jax.random.PRNGKey(1), n,
+                         batch=1, prime_tokens=jnp.asarray(prime),
+                         temperature=1.0)
     write_wav(os.path.join(ROOT, "sample_primed.wav"),
               tokens_to_waveform(toks, cfg)[0], cfg.sample_rate)
 
@@ -218,8 +217,7 @@ B=8, W=8192, remat, EMA {ema}, cosine lr to {STEPS} steps), {STEPS}
 steps on a {N_CLIPS}-clip synthetic speech-like corpus
 (deterministically regenerable: seed {CORPUS_SEED},
 `tools/full_evidence.py ensure_corpus` — an independent draw from the
-committed vocoder corpus stream), one v5e chip, fused five-group
-training kernels.  Held-out clips are the committed
+committed vocoder corpus stream), one {jax.devices()[0].device_kind}.  Held-out clips are the committed
 `runs/evidence/vocoder/corpus_eval` set (20 clips after the round-4
 extension).
 
@@ -235,8 +233,8 @@ extension).
 {rows}
 
 - `sample_free.wav` / `sample_primed.wav`: 2 s free-running and
-  held-out-primed samples decoded through the round-4 WIDE-R kernel
-  (`ops/pallas/decode_wide.py`) from the EMA weights.
+  held-out-primed samples decoded through the routed decoder
+  (`generate_auto`) from the EMA weights.
 """)
     print(json.dumps(scores, indent=1), flush=True)
     print("full evidence complete", flush=True)

@@ -1,9 +1,8 @@
 """Training-quality evidence for the FLAGSHIP VOCODER preset (round 5).
 
 `full_vocoder` (the `full` stack + 80-mel local conditioning) is the
-realistic TTS product config (BASELINE configs 3+5 jointly); round 5 gave
-it an in-kernel decode (ops/pallas/decode_wide.py streamed mel) and this
-produces its training evidence:
+realistic TTS product config (BASELINE configs 3+5 jointly); this produces
+its training evidence:
 
   1. train `full_vocoder` on the regenerable 256-clip speech-like corpus
      (tools/full_evidence.ensure_corpus — the same corpus as the
@@ -12,8 +11,8 @@ produces its training evidence:
      under its own mel, against the committed UNCONDITIONAL `full` run's
      per-clip scores (runs/evidence/full/scores.json, 20k steps) — the
      conditioned flagship must win on every clip;
-  3. copy-synthesis THROUGH THE WIDE KERNEL'S IN-KERNEL MEL ROUTE
-     (WaveNet.vocode -> generate_auto -> decode_wide): held-out mel ->
+  3. copy-synthesis through the routed decoder with mel (WaveNet.vocode ->
+     generate_auto -> the GPU decode kernel on a GPU): held-out mel ->
      waveform for the first N_SYNTH clips; log-mel L1 between every
      (synth, source) pair must be minimized on the diagonal (the output
      tracks the conditioning, not the corpus prior).
@@ -21,7 +20,7 @@ produces its training evidence:
 Artifacts under runs/evidence/full_vocoder/: metrics.jsonl, scores.json,
 melconf.json, copysyn_*.wav, README.md.
 
-Usage: python tools/full_vocoder_evidence.py [steps]   (default 8000; TPU)
+Usage: python tools/full_vocoder_evidence.py [steps]   (default 8000; GPU)
        python tools/full_vocoder_evidence.py resume    (redo 2-3 from ckpt)
 """
 
@@ -120,7 +119,7 @@ def main():
     print("flagship vocoder wins every held-out clip:", wins,
           "| median", med, flush=True)
 
-    # --- copy-synthesis through the wide kernel's in-kernel mel route ---
+    # --- copy-synthesis through the routed decoder with mel ---
     synth_mels, src_mels = [], []
     for p, w in zip(eval_paths[:N_SYNTH], waves[:N_SYNTH]):
         toks = voc.vocode(w, key=jax.random.PRNGKey(7), temperature=0.9)
@@ -152,9 +151,9 @@ def main():
         f.write(f"""# Flagship vocoder (`full_vocoder` preset) — evidence
 
 `full_vocoder` (4x1..512, 128/256 ch + 80-mel local conditioning — the
-round-5 preset), {STEPS} steps (cosine lr, EMA 0.999, fused mel training
-kernels) on the regenerable 256-clip corpus shared with the unconditional
-flagship run; one v5e chip.
+round-5 preset), {STEPS} steps (cosine lr, EMA 0.999) on the regenerable
+256-clip corpus shared with the unconditional flagship run; one
+{jax.devices()[0].device_kind}.
 
 - final train: loss {last.get('loss', float('nan')):.3f} nats
   ({last.get('bits_per_sample', float('nan')):.3f} bits/sample);
@@ -169,8 +168,8 @@ flagship run; one v5e chip.
   vocoder wins every clip: **{wins}** (median {med}; the unconditional
   run's 20k-step median was 2.55 — same corpus and schedule family)
 - copy-synthesis `copysyn_*.wav` ({n_ev} held-out clips) decoded through
-  the WIDE kernel's in-kernel streamed-mel route (`WaveNet.vocode` ->
-  `generate_auto` -> `ops/pallas/decode_wide.py`); log-mel L1 minimized
+  the routed decoder with mel (`WaveNet.vocode` -> `generate_auto`);
+  log-mel L1 minimized
   on the diagonal for every row: **{diag_best}** (`melconf.json`).
 """)
     print("evidence written to", ROOT, flush=True)

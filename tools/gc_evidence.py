@@ -14,7 +14,7 @@ quantitative proofs that the conditioning is learned and controls synthesis:
 Artifacts under runs/evidence/global_cond/: metrics.jsonl, confusion.json,
 f0.json, spk{0..3}.wav, README.md.
 
-Usage: python tools/gc_evidence.py [steps]   (default 20000; TPU)
+Usage: python tools/gc_evidence.py [steps]   (default 20000; GPU)
        python tools/gc_evidence.py resume    (skip training, redo evidence
                                               from the saved checkpoint)
 """
@@ -162,7 +162,7 @@ def main():
             "# Global-conditioning evidence\n\n"
             f"`small` preset + `global_classes={N_SPK}`, {STEPS} steps on the "
             f"4-speaker synthetic corpus (`tools/make_speechlike_corpus.py "
-            f"{CORPUS} 64 4.0 4`), one v5e chip.\n\n"
+            f"{CORPUS} 64 4.0 4`), one {jax.devices()[0].device_kind}.\n\n"
             f"- final: loss {last.get('loss', float('nan')):.3f} nats, "
             f"accuracy {last.get('accuracy', float('nan')):.3f}\n"
             f"- score confusion (bits/sample, rows=true speaker, "

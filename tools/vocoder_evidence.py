@@ -20,7 +20,7 @@ run round 2 lacked (VERDICT round 2, item 5):
 Artifacts under runs/evidence/vocoder/: metrics.jsonl,
 metrics_uncond.jsonl, scores.json, melconf.json, copysyn_*.wav, README.md.
 
-Usage: python tools/vocoder_evidence.py [steps]   (default 20000; TPU)
+Usage: python tools/vocoder_evidence.py [steps]   (default 20000; GPU)
        python tools/vocoder_evidence.py resume    (skip training, redo the
                                                    evidence from checkpoints)
 """
@@ -51,7 +51,7 @@ def train_one(cfg, corpus, ckpt_dir, metrics_path, steps):
             mf.flush()
         last = tr.run(steps, log_every=500, metrics_fn=hook)
     tr.save()
-    tr.ckpt.wait()              # async orbax save must commit before the
+    tr.ckpt.wait()              # async save must commit before the
     #   evidence pass restores it (race observed in full_evidence, round 4)
     print("final:", {k: round(float(v), 4) for k, v in last.items()},
           flush=True)
@@ -161,7 +161,7 @@ def main():
             "# Mel-vocoder (`conditional` preset) evidence\n\n"
             f"`conditional` preset (2x1..512, 64/128 ch, 80-mel local "
             f"conditioning), {STEPS} steps on the committed 24-clip "
-            f"synthetic speech-like corpus (`corpus/`), one v5e chip; an "
+            f"synthetic speech-like corpus (`corpus/`), one {jax.devices()[0].device_kind}; an "
             f"unconditional twin (same arch, `mel=None`) trained "
             f"identically for the likelihood comparison.\n\n"
             f"- vocoder final: loss {last.get('loss', float('nan')):.3f} "

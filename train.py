@@ -1,6 +1,6 @@
 #!/usr/bin/env python
 """Training CLI — role parity with the reference's train script
-(musyoku/wavenet `train_audio/train.py`; SURVEY.md §3.1), TPU-native inside.
+(musyoku/wavenet `train_audio/train.py`; SURVEY.md §3.1).
 
 Examples:
   python train.py --preset tiny --data ./wavs --steps 10000 --ckpt ./runs/t1
@@ -47,8 +47,6 @@ def parse_args(argv=None):
                         "training set)")
     p.add_argument("--metrics-file", default=None,
                    help="append JSONL metrics here")
-    from wavenet_tpu.utils import compcache
-    compcache.add_cli_flag(p)
     p.add_argument("--override", action="append", default=[],
                    help="config overrides as key=json, e.g. --override remat=true")
     return p.parse_args(argv)
@@ -86,11 +84,9 @@ def main(argv=None):
     from wavenet_tpu.training.trainer import Trainer
     from wavenet_tpu.utils import compcache
 
-    # restart-after-preemption latency: with the cache on, a resumed run
-    # reuses the previous process's compiled train step (SURVEY §5.3)
-    cache_dir = compcache.enable_from_args(args)
-    if cache_dir:
-        print(f"compilation cache: {cache_dir}", file=sys.stderr)
+    # restart-after-preemption latency: a resumed run reuses the previous
+    # process's compiled train step (SURVEY §5.3)
+    print(f"compilation cache: {compcache.enable()}", file=sys.stderr)
 
     if args.synthetic or not args.data:
         print("using synthetic dataset", file=sys.stderr)

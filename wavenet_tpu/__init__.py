@@ -1,8 +1,8 @@
-"""wavenet_tpu — TPU-native WaveNet vocoder framework (JAX/XLA/Pallas).
+"""wavenet_tpu — WaveNet vocoder framework (JAX/XLA/Pallas) for NVIDIA GPUs.
 
-A from-scratch re-design of the capabilities of musyoku/wavenet for TPU:
-mu-law codec, dilated-causal gated conv stack, fast cached-queue AR decode,
-mel conditioning, multi-chip sharding, Pallas kernels. See SURVEY.md.
+A from-scratch re-design of the capabilities of musyoku/wavenet: mu-law
+codec, dilated-causal gated conv stack, fast cached-queue AR decode, mel
+conditioning, multi-device sharding, a Pallas decode kernel. See SURVEY.md.
 """
 
 from wavenet_tpu.config import WaveNetConfig, MelConfig, get_config, PRESETS

@@ -14,7 +14,7 @@ while holding only a bounded working set:
   * a background prefetch thread assembles future batches from the same
     deterministic (seed, step) stream into a small queue, hiding decode
     latency behind the device step — exactly the role the reference's
-    synchronous NumPy loop could not play at pod scale (SURVEY.md §2 #2);
+    synchronous NumPy loop could not play at scale (SURVEY.md §2 #2);
   * multi-host: `rows=` restricts assembly to this host's batch slice
     (parallel/distributed.local_batch_slice), so each host decodes only the
     files its slice touches — per-host IO shard without breaking the

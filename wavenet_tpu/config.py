@@ -1,4 +1,4 @@
-"""Typed configuration for the TPU-native WaveNet framework.
+"""Typed configuration for the WaveNet framework.
 
 Mirrors the role of the reference's params-JSON-next-to-checkpoints idea
 (musyoku/wavenet keeps a params JSON serialized beside HDF5 weights; see
@@ -27,7 +27,7 @@ class MelConfig:
     fmin: float = 0.0
     fmax: float = 8000.0
     # Upsampling from mel frame-rate to sample-rate: product must equal
-    # hop_length. Done with repeat + conv smoothing (cheap, MXU-friendly).
+    # hop_length. Done with repeat + conv smoothing.
     upsample_factors: Tuple[int, ...] = (4, 8, 8)
 
     def __post_init__(self):
@@ -59,12 +59,11 @@ class WaveNetConfig:
     # Causal conv width (reference: configurable filter width, SURVEY.md §2
     # #3).  Applies uniformly to the embed conv and every dilated conv (the
     # RF formula below).  kernel_size == 2 (the paper's and every preset's
-    # value) is served by the Pallas kernels; kernel_size > 2 runs on the
-    # XLA scan paths — training single-chip or data-parallel, decode
-    # single-chip (one-shot, streaming, naive oracle, serving engine).  The
-    # width-2-only subsystems — the fused kernels, sequence/pipeline
-    # parallelism, and the distributed (mesh) decoder — refuse other widths
-    # at routing time.
+    # value) is served by the GPU decode kernel; kernel_size > 2 runs on the
+    # XLA scan paths — training single-device or data-parallel, decode
+    # single-device (one-shot, streaming, naive oracle, serving engine).
+    # The width-2-only subsystems — sequence parallelism and the
+    # distributed (mesh) decoder — refuse other widths at routing time.
     kernel_size: int = 2
     residual_channels: int = 32
     skip_channels: int = 16
@@ -83,23 +82,15 @@ class WaveNetConfig:
     compute_dtype: str = "bfloat16"    # activations/matmul inputs
     param_dtype: str = "float32"       # master weights
     remat: bool = False                # jax.checkpoint over the layer scan
-    # route the training conv stack through the fused Pallas kernel when the
-    # model fits its VMEM budget and a TPU backend is active (the trainer
-    # silently falls back to the XLA scan otherwise)
-    fused_stack: bool = True
     # Unroll factor of the XLA scan decoder's per-layer scan
     # (models/wavenet.py decode_step).  The scan decoder is bound by its
-    # serialized layer critical path, not by any one op (round-4 profile,
-    # runs/evidence/full_decode/profile.json); unroll=8 measured +65% on
-    # the shipped full-preset generate route (tools/tpu_unroll_bench.py,
-    # reproduced in two sessions) at a costly cold compile per shape — pair
-    # with the persistent compilation cache (utils/compcache.py) so that
-    # cost is paid once per machine, not per process.  1 = today's default
-    # behavior.  Perf knob only: same math per layer, but XLA may
-    # reassociate differently, so on TPU the sampled near-tie trajectory
-    # can differ between unroll settings — like the kernel-vs-scan route,
-    # the unroll value is part of a config's reproducibility key
-    # (docs/ARCHITECTURE.md §5).  Kernel-served configs ignore it.
+    # serialized layer critical path; a larger unroll shortens it at the
+    # cost of a longer compile per shape (PERF.md has the H100 numbers).
+    # Perf knob only: same math per layer, but XLA may reassociate
+    # differently, so a sampled near-tie trajectory can differ between
+    # unroll settings — the unroll value is part of a config's
+    # reproducibility key (docs/ARCHITECTURE.md §5).  Kernel-served configs
+    # ignore it.
     decode_unroll: int = 1
 
     # --- training ---
@@ -126,12 +117,9 @@ class WaveNetConfig:
 
     # --- parallelism (mesh axis sizes; 1 = disabled) ---
     data_parallel: int = 1
-    # model sharding of the conv stack: channel (Megatron) sharding on the
-    # XLA scan path; LAYER pipeline on the fused-kernel path when
-    # num_blocks % model_parallel == 0 (parallel/pipeline.py)
+    # model sharding of the conv stack: channel (Megatron) sharding
     model_parallel: int = 1
     seq_parallel: int = 1              # time-axis halo sharding
-    pipeline_microbatch: int = 1       # batch rows per fused-pipeline stage
 
     def __post_init__(self):
         if self.max_dilation & (self.max_dilation - 1):
@@ -178,6 +166,8 @@ class WaveNetConfig:
     @classmethod
     def from_json(cls, s: str) -> "WaveNetConfig":
         d = json.loads(s)
+        for k in _RETIRED_FIELDS:          # written by older versions
+            d.pop(k, None)
         mel = d.pop("mel", None)
         if mel is not None:
             mel["upsample_factors"] = tuple(mel["upsample_factors"])
@@ -188,8 +178,13 @@ class WaveNetConfig:
         return dataclasses.replace(self, **kw)
 
 
+# Fields older params JSON may carry that no longer configure anything: the
+# switches of the removed fused training kernel and its layer pipeline.
+_RETIRED_FIELDS = ("fused_stack", "pipeline_microbatch")
+
+
 # ---------------------------------------------------------------------------
-# Presets — exactly the five configs enumerated in BASELINE.json `configs`.
+# Presets
 # ---------------------------------------------------------------------------
 
 def tiny() -> WaveNetConfig:
@@ -229,7 +224,7 @@ def fastgen_bench() -> WaveNetConfig:
 
 
 def conditional() -> WaveNetConfig:
-    """Mel-conditioned Tacotron-style vocoder, shardable across chips."""
+    """Mel-conditioned Tacotron-style vocoder, shardable across devices."""
     return WaveNetConfig(
         num_blocks=2, max_dilation=512,
         residual_channels=64, skip_channels=128,
@@ -239,10 +234,7 @@ def conditional() -> WaveNetConfig:
 
 def full_vocoder() -> WaveNetConfig:
     """Flagship-quality vocoder: the `full` stack + mel conditioning (the
-    realistic TTS product BASELINE configs 3+5 point at jointly).  Decodes
-    in-kernel via the wide-R kernel's streamed mel blocks
-    (ops/pallas/decode_wide.py) — no R>=128 config falls back to the
-    out-of-contract XLA scan (round-4 verdict #1)."""
+    realistic TTS product)."""
     return WaveNetConfig(
         num_blocks=4, max_dilation=512,
         residual_channels=128, skip_channels=256,

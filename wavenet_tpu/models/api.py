@@ -56,7 +56,7 @@ class WaveNet:
 
     def replace_config(self, **kw) -> "WaveNet":
         """Return a model with non-architectural config fields overridden
-        (perf/deployment knobs: decode_unroll, fused_stack, batch_size, …).
+        (perf/deployment knobs: decode_unroll, batch_size, …).
         Params are shared, not copied; overriding an architecture field
         would desync params from config — guarded by the same field list
         the checkpoint loader enforces."""
@@ -90,7 +90,7 @@ class WaveNet:
         """Write the weights as ONE portable .npz (keys '/'-joined for
         nested subtrees, config JSON under '__config__') — the
         single-file interchange artifact the reference's HDF5 weight files
-        were; orbax checkpoints stay the training format."""
+        were; the step checkpoints stay the training format."""
         import numpy as np
         from wavenet_tpu.utils.pytree_io import flatten_tree
         if self.params is None:
@@ -131,7 +131,7 @@ class WaveNet:
                  mesh=None, seed: int = 0, seeds=None, y=None):
         """Sample audio tokens.  mesh: optional jax.sharding.Mesh with
         (data, model) axes — routes through the distributed decoder
-        (multi-chip AR generation, SURVEY.md P3); `seed` drives its
+        (multi-device AR generation, SURVEY.md P3); `seed` drives its
         layout-independent counter RNG (key is ignored on that path).
         seeds: optional [batch] per-row counter-RNG seeds (ops/rng.py) —
         each row's audio then depends only on ITS seed (the serving
@@ -203,9 +203,8 @@ class WaveNet:
         """Yield float waveform chunks ([B, <=chunk] in [-1, 1]) as they are
         generated — the serving entry point for long-form synthesis.
         Bounded memory; the emitted audio is bit-identical to a one-shot
-        generate on the same path: the in-kernel decoder's RNG is keyed by
-        global step, and configs past its VMEM plan stream through chunked
-        XLA decode_step scans matching the one-shot XLA generate.
+        generate on the same route (wavenet_tpu.route): the kernel's and
+        the scan's RNG are both keyed by the global step.
         seeds: optional [batch] per-row counter-RNG seeds (ops/rng.py);
         key is ignored when given.
         mesh: optional jax.sharding.Mesh — streams through the DISTRIBUTED

@@ -7,8 +7,8 @@ unconditional; BASELINE.json config 5 mandates a Tacotron-style vocoder).
 
 Upsampler: a chain of (nearest-repeat by f, then time-conv k=2f+1, M->M
 channels) stages whose factors multiply to hop_length.  Nearest-repeat +
-small convs keeps everything static-shape and MXU/VPU friendly — no
-transposed-conv scatter patterns, which lower poorly on TPU.
+small convs keeps everything static-shape — no transposed-conv scatter
+patterns.
 """
 
 from __future__ import annotations

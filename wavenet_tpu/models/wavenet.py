@@ -1,13 +1,13 @@
-"""TPU-native WaveNet model core.
+"""WaveNet model core.
 
 Implements the architecture of WaveNet (arXiv:1609.03499 §2.1-2.5):
 causal embed -> N x (dilated causal conv -> gated tanh (*) sigmoid -> 1x1
 residual + 1x1 skip) -> skip-sum -> ReLU -> 1x1 -> ReLU -> 1x1 -> Q-way logits,
 with optional mel local conditioning entering the gate (paper eq.3).
 
-TPU-first design (NOT a port of the Chainer reference; see SURVEY.md §7):
-  * Layout is [B, T, C] (channels-last -> TPU lanes).  The k=2 dilated conv is
-    two MXU matmuls: x[t] @ W_cur + x[t-d] @ W_prev, with the shift done by a
+Design (NOT a port of the Chainer reference; see SURVEY.md §7):
+  * Layout is [B, T, C] (channels-last).  The k=2 dilated conv is
+    two matmuls: x[t] @ W_cur + x[t-d] @ W_prev, with the shift done by a
     static-shape dynamic_slice (ops/shift.py).  Filter and gate are fused into
     one matmul of output width 2R.
   * The causal k=2 "embedding conv" over one-hot inputs is algebraically an
@@ -22,7 +22,7 @@ TPU-first design (NOT a port of the Chainer reference; see SURVEY.md §7):
     over layers, the whole generation loop is a single compiled `lax.scan`.
 
 Params are a plain pytree (dict) — trivially shardable with NamedSharding and
-saveable with orbax.
+saveable as .npz (utils/pytree_io.py).
 """
 
 from __future__ import annotations
@@ -149,7 +149,7 @@ def _stacked_layer_params(params: Params):
 
 
 def _dot(a, b, out_dtype=jnp.float32):
-    """Matmul on the MXU; accumulation dtype selectable (f32 default)."""
+    """Matmul; accumulation dtype selectable (f32 default)."""
     return jax.lax.dot_general(
         a, b, (((a.ndim - 1,), (0,)), ((), ())),
         preferred_element_type=out_dtype)
@@ -164,14 +164,9 @@ def embed_tokens(params: Params, cfg: WaveNetConfig,
                  prev_extra: Optional[jax.Array] = None) -> jax.Array:
     """E_cur[tokens] + E_prev[prev_tokens] -> residual stream [.., R].
 
-    Deliberately a GATHER, not a one-hot matmul.  The matmul formulation
-    (embed backward as MXU matmul instead of a B*W-row scatter-add) was
-    measured on v5e and rejected: with DEFAULT matmul precision XLA rounds
-    the f32 tables to bf16 and the lowering (gather vs matmul) varies with
-    the surrounding graph — two jits of the same loss diverged at bf16 ulp
-    in x and 1e-1 relative in grads; with Precision.HIGHEST it was *slower*
-    than the scatter path (7.94 vs 7.72 ms full small-preset grad step) and
-    still not bit-stable (tools/tpu_step_breakdown.py bisect, round 2).
+    Deliberately a GATHER, not a one-hot matmul: a matmul at DEFAULT
+    precision rounds the f32 tables (to bf16 or TF32), so the embedding
+    would depend on the backend's lowering; the gather selects exactly.
 
     prev_extra: for kernel_size K > 2, the [K-2, *tokens.shape] int32 tokens
     at t-2..t-(K-1) (the extra taps of the width-K embed conv); all taps sum
@@ -224,11 +219,10 @@ def _layer_step(cfg: WaveNetConfig, x, skip, lp, d, left_ctx, cond,
     """
     cdt = _dtype(cfg)
     x_prev = shift_right(x, d, left_ctx)
-    # Gate math in f32: matmul inputs are bf16 (MXU) but z, the activations,
-    # and the skip accumulator stay f32.  XLA compiles with excess precision
-    # on TPU (bf16 intermediates held in f32 through fusions), so an
-    # explicitly-bf16 z would DIVERGE from what XLA actually executes — f32
-    # keeps the scan path and the Pallas kernels numerically aligned.
+    # Gate math in f32: matmul inputs are bf16 but z, the activations, and
+    # the skip accumulator stay f32 — the same recipe as the decode kernel
+    # (ops/pallas/decode_gpu.py), so scan and kernel stay numerically
+    # aligned.
     z = (_dot(x, lp["w_cur"].astype(cdt))
          + _dot(x_prev, lp["w_prev"].astype(cdt)))
     wk = lp.get("w_prevk")                       # kernel_size K > 2 taps
@@ -244,10 +238,9 @@ def _layer_step(cfg: WaveNetConfig, x, skip, lp, d, left_ctx, cond,
     h = (jnp.tanh(z[..., 0, :]) * jax.nn.sigmoid(z[..., 1, :])).astype(cdt)
     skip = skip + _dot(h, lp["w_skip"].astype(cdt)) + lp["b_skip"].astype(jnp.float32)
     # residual update with ONE explicit f32 accumulate + ONE rounding: a
-    # bf16 + bf16 formulation is backend-DEPENDENT (XLA-TPU elides the
-    # intermediate round via excess precision, XLA-CPU and Mosaic keep it),
-    # so the single-round form is the only recipe that is bit-identical
-    # across the scan path, the Pallas decode kernel, and interpret mode
+    # bf16 + bf16 formulation is backend-dependent (a compiler may elide
+    # the intermediate round through excess precision), so the single-round
+    # form is the recipe shared by the scan path and the decode kernel
     x = (x.astype(jnp.float32)
          + _dot(h, lp["w_res"].astype(cdt))
          + lp["b_res"].astype(jnp.float32)).astype(cdt)
@@ -373,56 +366,18 @@ def head_logits(params: Params, cfg: WaveNetConfig, skip: jax.Array) -> jax.Arra
     return logits
 
 
-def forward_logits_fused(params: Params, cfg: WaveNetConfig,
-                         tokens: jax.Array,
-                         interpret: bool = False, tile=None,
-                         mel: Optional[jax.Array] = None,
-                         speaker: Optional[jax.Array] = None) -> jax.Array:
-    """forward_logits via the fused Pallas training-stack kernels
-    (ops/pallas/train_stack.py); callers must check
-    train_stack.supported(cfg, T).  Mel conditioning is supported: the
-    upsampler runs in XLA (its params autodiff normally) and the per-layer
-    gate contribution y @ v_cond runs inside the kernels.  Global
-    conditioning likewise: the per-(row, layer) gate offset is computed in
-    XLA (g_embed/v_global autodiff normally) and added in-kernel."""
-    from wavenet_tpu.ops.pallas.train_stack import forward_skip_fused
-    prev = _shifted_tokens(tokens)
-    x = embed_tokens(params, cfg, tokens, prev)
-    y = None
-    if cfg.mel is not None:
-        if mel is None:
-            raise ValueError("cfg.mel set but no mel features passed")
-        from wavenet_tpu.models.conditioning import upsample_mel
-        y = upsample_mel(params["upsampler"], cfg.mel, mel, tokens.shape[1])
-    g = None
-    if cfg.global_classes is not None:
-        if speaker is None:
-            raise ValueError("cfg.global_classes set but no speaker ids passed")
-        g = global_cond_offsets(params, cfg, speaker)        # [L, B, 2, R]
-    skip = forward_skip_fused(params, cfg, x, interpret=interpret, tile=tile,
-                              y=y, g=g)
-    return head_logits(params, cfg, skip)
-
-
 def loss_fn(params: Params, cfg: WaveNetConfig, tokens: jax.Array,
             mel: Optional[jax.Array] = None,
             speaker: Optional[jax.Array] = None,
-            use_fused: bool = False,
-            interpret: bool = False) -> Tuple[jax.Array, Dict[str, jax.Array]]:
+            ) -> Tuple[jax.Array, Dict[str, jax.Array]]:
     """Next-sample softmax cross-entropy over a [B, W] token window.
 
     Inputs are tokens[:, :-1], targets tokens[:, 1:] — matching the
-    reference's training objective (SURVEY.md §3.1).  use_fused routes the
-    conv stack through the fused Pallas kernel (training hot path).
+    reference's training objective (SURVEY.md §3.1).
     """
     inputs = tokens[:, :-1]
     targets = tokens[:, 1:]
-    if use_fused:
-        logits = forward_logits_fused(params, cfg, inputs,
-                                      interpret=interpret, mel=mel,
-                                      speaker=speaker)
-    else:
-        logits = forward_logits(params, cfg, inputs, mel=mel, speaker=speaker)
+    logits = forward_logits(params, cfg, inputs, mel=mel, speaker=speaker)
     logp = jax.nn.log_softmax(logits, axis=-1)
     nll = -jnp.take_along_axis(logp, targets[..., None], axis=-1)[..., 0]
     loss = jnp.mean(nll)
@@ -435,21 +390,27 @@ def loss_fn(params: Params, cfg: WaveNetConfig, tokens: jax.Array,
     return loss, aux
 
 
+def reference_loss_fn(params: Params, cfg: WaveNetConfig, tokens: jax.Array,
+                      mel: Optional[jax.Array] = None,
+                      speaker: Optional[jax.Array] = None
+                      ) -> Tuple[jax.Array, Dict[str, jax.Array]]:
+    """The float32 reference of loss_fn: activations in float32 and every
+    matmul at `highest` precision (no bf16, no TF32 on a GPU).  The timed
+    bf16 path is compared with it within a stated tolerance."""
+    with jax.default_matmul_precision("highest"):
+        return loss_fn(params, cfg.replace(compute_dtype="float32"), tokens,
+                       mel=mel, speaker=speaker)
+
+
 def score_fn(params: Params, cfg: WaveNetConfig, tokens: jax.Array,
              mel: Optional[jax.Array] = None,
-             speaker: Optional[jax.Array] = None,
-             use_fused: bool = False) -> jax.Array:
+             speaker: Optional[jax.Array] = None) -> jax.Array:
     """Per-utterance teacher-forced score: mean next-sample negative
     log-likelihood in BITS per sample, shape [B] — the quantity loss_fn
     averages over the batch, exposed per clip for evaluation / model
     comparison.  tokens: [B, T+1] mu-law ids."""
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
-    if use_fused:
-        logits = forward_logits_fused(params, cfg, inputs, mel=mel,
-                                      speaker=speaker)
-    else:
-        logits = forward_logits(params, cfg, inputs, mel=mel,
-                                speaker=speaker)
+    logits = forward_logits(params, cfg, inputs, mel=mel, speaker=speaker)
     logp = jax.nn.log_softmax(logits, axis=-1)
     nll = -jnp.take_along_axis(logp, targets[..., None], axis=-1)[..., 0]
     return jnp.mean(nll, axis=-1) / jnp.log(2.0)
@@ -609,6 +570,23 @@ def decode_step(params: Params, cfg: WaveNetConfig, state: DecodeState,
     return new_state, logits
 
 
+def decode_logits(params: Params, cfg: WaveNetConfig, state: DecodeState,
+                  tokens: jax.Array, cond: Optional[jax.Array] = None,
+                  gcond: Optional[jax.Array] = None) -> jax.Array:
+    """Teacher-forced decode: consume tokens [B, n] one step at a time from
+    `state` and return each step's logits [B, n, Q] — the scan reference a
+    decode kernel's per-step logits are compared with.  cond: optional
+    [B, n, L, 2, R] per-step conditioning for these steps."""
+    def body(state, xs):
+        tok, cond_t = xs
+        return decode_step(params, cfg, state, tok, cond_t=cond_t,
+                           gcond=gcond)
+
+    cond_steps = None if cond is None else jnp.moveaxis(cond, 1, 0)
+    _, logits = jax.lax.scan(body, state, (tokens.T, cond_steps))
+    return jnp.moveaxis(logits, 0, 1)
+
+
 def generate(params: Params, cfg: WaveNetConfig, key: jax.Array,
              num_samples: int, batch: int = 1,
              prime_tokens: Optional[jax.Array] = None,
@@ -703,7 +681,7 @@ def decode_sample_chunk(params: Params, cfg: WaveNetConfig,
 
     seeds: optional [B] int32 per-row seeds switching sampling to the
     COUNTER RNG (ops/rng.py) keyed by (row seed, global step, class) — the
-    same hash the Pallas kernel and the collective decoder draw from, so
+    same hash the decode kernel and the collective decoder draw from, so
     this path samples token-identical trajectories whenever the logits
     bit-match (bfloat16 compute), and each row's draws are independent of
     co-batched rows.  `key` is ignored in that mode (chunking stays exact:
@@ -713,7 +691,7 @@ def decode_sample_chunk(params: Params, cfg: WaveNetConfig,
 
     def sample_body(carry, i):
         state, token = carry
-        tkey = state.t      # GLOBAL step consuming `token` (kernel's t0+t)
+        tkey = state.t      # GLOBAL step consuming `token`
         cond_t = None if cond is None else cond[:, state.t - cond_t0]
         state, logits = decode_step(params, cfg, state, token, cond_t=cond_t,
                                     gcond=gcond)
@@ -722,7 +700,7 @@ def decode_sample_chunk(params: Params, cfg: WaveNetConfig,
         # Python control flow cannot branch on
         if isinstance(temperature, (int, float)) and temperature <= 0:
             nxt = jnp.argmax(logits, axis=-1)    # greedy — matches the
-        elif seeds is not None:                  # Pallas kernel's t==0 branch
+        elif seeds is not None:                  # decode kernel's greedy mode
             g = _rng.counter_gumbel(seeds[:, None], tkey, 0, logits.shape,
                                     class_axis=1)
             nxt = jnp.argmax(logits * (1.0 / temperature) + g, axis=-1)

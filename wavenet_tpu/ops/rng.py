@@ -2,9 +2,9 @@
 
 One hash, one keying, three consumers:
 
-  * the whole-loop Pallas decode kernel (ops/pallas/decode.py) — runs this
-    exact code inside the kernel (plain VPU integer ops; no pltpu.prng_*,
-    which has no CPU/interpret lowering);
+  * the whole-loop GPU decode kernel (ops/pallas/decode_gpu.py) — runs this
+    exact code inside the kernel (plain uint32 arithmetic, which the
+    interpreter runs too);
   * the distributed collective decoder (parallel/distdecode.py) — jnp on
     the sharded logits;
   * the XLA scan decoder's counter-sampling mode
@@ -18,7 +18,7 @@ layout.  Consequences, all tested:
   * the same request seed replays the same audio regardless of what other
     requests are co-batched with it (serving replay contract);
   * data-parallel fan-out, model-sharded collective decode, and the
-    single-chip kernel all sample IDENTICAL tokens at the same seeds
+    single-device kernel all sample IDENTICAL tokens at the same seeds
     (they add identical Gumbel noise to bit-identical logits);
   * batch tiles inside the kernel draw the same noise as an untiled run.
 
@@ -26,7 +26,7 @@ Step keying uses the GLOBAL decode step (priming steps count), so chunked
 / streaming decode is bit-identical to one-shot.
 
 The reference samples with NumPy's stateful RNG on the host per sample
-(SURVEY.md §3.2 [MEM:med]); a TPU-native decoder samples inside the
+(SURVEY.md §3.2 [MEM:med]); a decoder that samples inside the
 compiled loop, which demands a stateless counter RNG.
 """
 
@@ -49,7 +49,7 @@ def _mix(h):
 def derive_row_seeds(seed, batch: int) -> jax.Array:
     """Scalar seed -> [batch] int32 per-row seeds, hashed from the GLOBAL
     row index — so a data-sharded consumer slicing this vector draws the
-    same noise as a single-chip run over the full batch."""
+    same noise as a single-device run over the full batch."""
     rows = jnp.arange(batch, dtype=jnp.uint32)
     h = (jnp.asarray(seed).astype(jnp.uint32) * jnp.uint32(0x9E3779B9)
          + rows * jnp.uint32(0x85EBCA77))
@@ -72,7 +72,7 @@ def counter_uniform(seeds, t, class0, shape, class_axis: int):
 
     seeds: per-row seeds already broadcastable to `shape` with rows on the
       non-class axis (e.g. [B, 1] against (B, Qlocal), or [1, Bt] against
-      (Q, Bt) in the kernel's transposed layout).
+      (Q, Bt) in a transposed layout).
     t: scalar GLOBAL decode step.
     class0: global class index of this tile's first class column (0 when
       the class axis is unsharded).
@@ -83,7 +83,7 @@ def counter_uniform(seeds, t, class0, shape, class_axis: int):
     (regression test in tests/test_distributed_decode.py).
 
     (bits >> 8) fits in 24 bits, so the int32 round-trip before the f32
-    cast is exact; Mosaic has no direct uint32 -> float32 cast."""
+    cast is exact."""
     cls = (jnp.asarray(class0).astype(jnp.uint32)
            + jax.lax.broadcasted_iota(jnp.uint32, shape, class_axis))
     h = (jnp.asarray(seeds).astype(jnp.uint32) * jnp.uint32(0x9E3779B9)

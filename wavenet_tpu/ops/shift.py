@@ -1,9 +1,9 @@
 """Causal time-shift primitives.
 
 A kernel-2 dilated causal conv (WaveNet paper §2.1, Figs 2-3) needs, at every
-position t, the pair (x[t-d], x[t]).  On TPU we realize this not as a conv op
-but as a *shift + two matmuls* so all FLOPs land on the MXU with [B*T, C]
-operands (SURVEY.md §7.1).  The shift is a static-shape dynamic_slice over a
+position t, the pair (x[t-d], x[t]).  We realize this not as a conv op but
+as a *shift + two matmuls* so all FLOPs are matmuls over [B*T, C] operands
+(SURVEY.md §7.1).  The shift is a static-shape dynamic_slice over a
 left-padded buffer, which makes the dilation a *traced* value — allowing one
 `lax.scan` over layers with a per-layer dilation array.
 """

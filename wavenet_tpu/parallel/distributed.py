@@ -1,10 +1,9 @@
-"""Multi-host process bootstrap — the TPU-native communication backend
+"""Multi-host process bootstrap — the communication backend
 (SURVEY.md §5.8, BASELINE P4).
 
-There is no NCCL/MPI/Gloo layer to configure: `jax.distributed.initialize`
-bootstraps the process group (coordinator discovery via TPU metadata on real
-pods, or explicit args), after which ALL data movement is XLA collectives
-compiled over ICI (intra-slice) / DCN (across slices) through the mesh in
+There is no transport layer to configure here: `jax.distributed.initialize`
+bootstraps the process group from explicit arguments, after which ALL data
+movement is XLA collectives (NCCL on NVIDIA GPUs) through the mesh in
 parallel/mesh.py.  This module is the thin seam that makes multi-host runs
 one function call and keeps single-host/dev environments untouched.
 """
@@ -22,10 +21,9 @@ def initialize(coordinator_address: Optional[str] = None,
                process_id: Optional[int] = None) -> None:
     """Bootstrap multi-host JAX.  No-ops when single-process.
 
-    On real TPU pods all three args are discovered from the environment
-    (so `initialize()` suffices); for CPU/GPU-style clusters pass them
-    explicitly or via JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES /
-    JAX_PROCESS_ID.
+    Pass the coordinator address (e.g. "localhost:<port>"), the process
+    count and this process's id, explicitly or via JAX_COORDINATOR_ADDRESS /
+    JAX_NUM_PROCESSES / JAX_PROCESS_ID.
     """
     env = os.environ
     coordinator_address = coordinator_address or env.get("JAX_COORDINATOR_ADDRESS")
@@ -35,11 +33,7 @@ def initialize(coordinator_address: Optional[str] = None,
         process_id = int(env["JAX_PROCESS_ID"])
 
     if coordinator_address is None and num_processes is None:
-        # single-process (dev box / 1 host with N chips): nothing to do,
-        # unless running on a TPU pod where jax can self-discover
-        if env.get("TPU_WORKER_HOSTNAMES") and env.get("TPU_WORKER_ID"):
-            jax.distributed.initialize()
-        return
+        return          # single process (one host with N devices)
     jax.distributed.initialize(
         coordinator_address=coordinator_address,
         num_processes=num_processes,

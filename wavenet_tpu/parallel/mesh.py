@@ -1,16 +1,18 @@
 """Device mesh construction.
 
-The TPU-native communication backend (SURVEY.md §5.8): no NCCL/MPI — all data
-movement is XLA collectives compiled over ICI/DCN, expressed through a
-`jax.sharding.Mesh` with axes:
+All data movement between devices is XLA collectives (SURVEY.md §5.8; on
+NVIDIA GPUs XLA hands them to NCCL), expressed through a `jax.sharding.Mesh`
+with axes:
 
   data  — utterance-batch data parallelism (BASELINE P1)
   model — channel sharding of the conv stack (Megatron-style, P2)
   seq   — time-axis halo sharding for long clips (P6)
 
-Axis ORDER matters physically: innermost mesh dims map to adjacent devices on
-the ICI torus, so `model` (latency-sensitive psum every layer) is placed last
-(fastest-varying), `data` (one gradient psum per step) first.
+The cards of one host are joined all to all by NVLink, so every pair of
+devices is as close as any other: the axis order follows the algorithm
+alone.  `model` (a psum every layer) is the fastest-varying axis and `data`
+(one gradient psum per step) the slowest, which keeps each model group on
+consecutive devices.
 """
 
 from __future__ import annotations

@@ -4,7 +4,7 @@ The convolutional analogue of context parallelism (SURVEY.md §5.7): there is
 no attention in WaveNet, so ring-attention/Ulysses do not apply.  Instead the
 time axis is sharded across the `seq` mesh axis and each layer's causal shift
 reads its left context from the previous shard's tail — ONE `ppermute` of
-[B, maxd, R] per layer per step, riding ICI.  Activation memory per chip is
+[B, maxd, R] per layer per step.  Activation memory per device is
 O(T / seq_shards); the math is bit-identical to the unsharded forward because
 the halo IS the exact missing left context (asserted in tests, per SURVEY.md
 §7.4 "Causal alignment under sharding").
@@ -129,115 +129,6 @@ def _metrics(sums, n_tokens):
     loss = total[0] / n
     return loss, {"loss": loss, "bits_per_sample": loss / jnp.log(2.0),
                   "accuracy": total[1] / n}
-
-
-# ---------------------------------------------------------------------------
-# Fused-kernel sequence parallelism: overlap-discard
-# ---------------------------------------------------------------------------
-
-def _halo_tiles(cfg: WaveNetConfig, TT: int) -> int:
-    """Warmup rows each shard prepends, rounded up to whole kernel tiles:
-    the stack's receptive field is sum(dilations), so outputs at positions
-    >= H are bit-exact even though the kernel starts from zero rings."""
-    rf = sum(cfg.dilations)
-    return -(-rf // TT) * TT
-
-
-def sp_fused_supported(cfg: WaveNetConfig, W: int, sp: int) -> bool:
-    """Can the fused kernel serve seq-parallel training via overlap-discard?
-    Needs tileable local windows and a local window long enough that the
-    halo comes from ONE left neighbor."""
-    from wavenet_tpu.ops.pallas import train_stack as ts
-    if sp <= 1 or W % sp or cfg.kernel_size != 2:
-        return False
-    Tl = W // sp
-    TT = ts.pick_tile(cfg, Tl)
-    if not TT or not ts.group_plan(cfg, TT):
-        return False
-    return Tl >= _halo_tiles(cfg, TT)
-
-
-def loss_fn_sp_fused(params: wn.Params, cfg: WaveNetConfig, mesh: Mesh,
-                     inputs: jax.Array, targets: jax.Array,
-                     mel: Optional[jax.Array] = None,
-                     speaker: Optional[jax.Array] = None,
-                     interpret: bool = False,
-                     ) -> Tuple[jax.Array, Dict[str, jax.Array]]:
-    """Sequence-parallel loss through the FUSED stack kernels.
-
-    Per-layer halo exchange (loss_fn_sp) cannot compose with the fused
-    kernels — each layer's left context is interior kernel state.  Instead
-    each shard ppermutes the last H rows of the EMBEDDED input (and the
-    upsampled conditioning) from its left neighbor, runs the unmodified
-    fused kernel on the H+T_local window from zero rings, and discards the
-    first H outputs: positions >= H have their entire receptive field inside
-    the window, so the kept outputs are bit-identical to the unsharded
-    kernel (asserted in tests/test_seqpar.py).  Extra compute is
-    H / T_local (e.g. 2048/4096 = 50% at W=8192, sp=2; shrinks with longer
-    windows, which is the regime sequence parallelism exists for) — still
-    well ahead of dropping to the XLA scan, and ONE ppermute per step
-    instead of one per layer.
-
-    Shard 0 is special: a zero-filled halo is NOT equivalent to the
-    kernel's zero-ring sequence start, because zero INPUT rows still get the
-    gate/residual biases injected — the phantom rows grow a nonzero stream
-    that pollutes the first kept outputs (and contributes spurious
-    Σdz / Σdx bias gradients even at zero-init, where only the forward
-    coincides).  So shard 0 rolls its real data to the window START — the
-    exact zero-ring semantics of the unsharded kernel — and the phantom
-    zeros TRAIL, where causality gives them zero cotangent.  One roll+select
-    per side keeps the shard_map program uniform across shards."""
-    from wavenet_tpu.ops.pallas import train_stack as ts
-    Tl = check_seq_shardable(cfg, mesh, inputs.shape[1])
-    TT = ts.pick_tile(cfg, Tl)
-    if not TT:
-        raise ValueError(f"T/seq = {Tl} is not tileable for this config; "
-                         f"gate on sp_fused_supported()")
-    H = _halo_tiles(cfg, TT)
-    if Tl < H:
-        raise ValueError(f"T/seq = {Tl} < warmup {H}; gate on "
-                         f"sp_fused_supported()")
-    y = None
-    if cfg.mel is not None:
-        from wavenet_tpu.models.conditioning import upsample_mel
-        y = upsample_mel(params["upsampler"], cfg.mel, mel, inputs.shape[1])
-
-    def left_halo(a):
-        spn = jax.lax.axis_size(SEQ_AXIS)
-        return jax.lax.ppermute(
-            a[:, -H:], SEQ_AXIS, [(i, i + 1) for i in range(spn - 1)])
-
-    def local_sums(params, inputs, targets, y, speaker):
-        prev = _prev_tokens_sp(inputs)
-        x = wn.embed_tokens(params, cfg, inputs, prev)       # [B, Tl, R]
-        first = jax.lax.axis_index(SEQ_AXIS) == 0
-
-        def ext(a):                                          # [B, H+Tl, .]
-            w = jnp.concatenate([left_halo(a), a], axis=1)
-            return jnp.where(first, jnp.roll(w, -H, axis=1), w)
-
-        x_ext = ext(x)
-        y_ext = ext(y) if y is not None else None
-        # time-constant global offsets: identical on every seq shard, so the
-        # overlap-discard window needs no halo treatment for g
-        g = (None if speaker is None
-             else wn.global_cond_offsets(params, cfg, speaker))
-        skip = ts.forward_skip_fused(params, cfg, x_ext, tile=TT,
-                                     y=y_ext, g=g, interpret=interpret)
-        skip = jnp.where(first, jnp.roll(skip, H, axis=1), skip)[:, H:]
-        logits = wn.head_logits(params, cfg, skip)
-        return _loss_sums(logits, targets)
-
-    in_specs = (P(), P(DATA_AXIS, SEQ_AXIS), P(DATA_AXIS, SEQ_AXIS),
-                P(DATA_AXIS, SEQ_AXIS, None) if y is not None else P(),
-                P(DATA_AXIS) if speaker is not None else P())
-    sums = jax.shard_map(
-        local_sums, mesh=mesh, in_specs=in_specs,
-        out_specs=P((DATA_AXIS, SEQ_AXIS), None),
-        axis_names=frozenset({DATA_AXIS, SEQ_AXIS}),
-        check_vma=False,
-    )(params, inputs, targets, y, speaker)
-    return _metrics(sums, inputs.size)
 
 
 def loss_fn_sp(params: wn.Params, cfg: WaveNetConfig, mesh: Mesh,

@@ -30,15 +30,8 @@ from wavenet_tpu.parallel.mesh import DATA_AXIS, MODEL_AXIS, SEQ_AXIS
 Params = Dict[str, Any]
 
 
-def validate(cfg: WaveNetConfig, mesh: Mesh,
-             layer_sharded: bool = False) -> None:
+def validate(cfg: WaveNetConfig, mesh: Mesh) -> None:
     mp = mesh.shape[MODEL_AXIS]
-    if layer_sharded:
-        if cfg.num_blocks % mp:
-            raise ValueError(f"num_blocks={cfg.num_blocks} not divisible "
-                             f"by model_parallel={mp} (pipeline stages own "
-                             f"whole dilation blocks)")
-        return
     if cfg.residual_channels % mp:
         raise ValueError(f"residual_channels={cfg.residual_channels} "
                          f"not divisible by model_parallel={mp}")
@@ -88,51 +81,8 @@ def param_pspecs(cfg: WaveNetConfig) -> Params:
     return specs
 
 
-def param_pspecs_layer(cfg: WaveNetConfig) -> Params:
-    """LAYER-sharded PartitionSpecs for the fused-pipeline path
-    (parallel/pipeline.py): stacked [L, ...] leaves split their leading
-    layer axis over `model` (each pipeline stage holds its own blocks);
-    embed/head/upsampler replicate.  Megatron channel sharding
-    (param_pspecs) stays the spec for the XLA scan path."""
-    M = MODEL_AXIS
-    specs: Params = {
-        "embed_cur": P(None, None),
-        "embed_prev": P(None, None),
-        "w_cur": P(M, None, None, None),
-        "w_prev": P(M, None, None, None),
-        "b": P(M, None, None),
-        "w_res": P(M, None, None),
-        "b_res": P(M, None),
-        "w_skip": P(M, None, None),
-        "b_skip": P(M, None),
-        "head_w1": P(None, None),
-        "head_b1": P(None),
-        "head_w2": P(None, None),
-        "head_b2": P(None),
-    }
-    if cfg.kernel_size > 2:
-        specs["w_prevk"] = P(M, None, None, None, None)   # layer axis
-        specs["embed_prevk"] = P(None, None, None)
-    if cfg.embed_channels != cfg.residual_channels:
-        specs["w_embed_proj"] = P(None, None)
-    if cfg.mel is not None:
-        specs["v_cond"] = P(M, None, None, None)
-        ups: Params = {}
-        for i in range(len(cfg.mel.upsample_factors)):
-            ups[f"w{i}"] = P(None, None, None)
-            ups[f"b{i}"] = P(None)
-        specs["upsampler"] = ups
-    if cfg.global_classes is not None:
-        specs["g_embed"] = P(None, None)
-        specs["v_global"] = P(M, None, None, None)   # layer axis, like w_cur
-    return specs
-
-
-def param_shardings(cfg: WaveNetConfig, mesh: Mesh,
-                    layer_sharded: bool = False) -> Params:
-    pspecs = (param_pspecs_layer(cfg) if layer_sharded
-              else param_pspecs(cfg))
-    return jax.tree.map(lambda s: NamedSharding(mesh, s), pspecs,
+def param_shardings(cfg: WaveNetConfig, mesh: Mesh) -> Params:
+    return jax.tree.map(lambda s: NamedSharding(mesh, s), param_pspecs(cfg),
                         is_leaf=lambda x: isinstance(x, P))
 
 

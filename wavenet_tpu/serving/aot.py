@@ -2,7 +2,7 @@
 
 The reference deploys by shipping HDF5 weights plus the Chainer model code
 that rebuilds the graph at load time (SURVEY.md §1 "Generation driver" /
-§3.4).  The TPU-native serving equivalent is an AOT artifact: the whole
+§3.4).  The serving equivalent here is an AOT artifact: the whole
 autoregressive decode loop — already ONE compiled `lax.scan` — is lowered
 and serialized ONCE via `jax.export` (StableHLO), so a serving host needs
 only this loader and the artifact file: no model-construction code runs at
@@ -16,9 +16,11 @@ Artifact layout (one .zip, conventionally *.wnx):
                     with_speaker, platforms}
 
 Scope: the exported computation is the XLA scan decoder (`wn.generate`) —
-platform-portable and shape-static.  The Pallas whole-loop kernel stays a
-JIT-time specialization (its Mosaic payload is libtpu-version-bound, the
-wrong thing to freeze into a deployment artifact).  Mel-conditioned
+platform-portable and shape-static.  The GPU whole-loop kernel stays a
+JIT-time specialization (its Triton payload is bound to the compiler that
+built it, the wrong thing to freeze into a deployment artifact).  By
+default the artifact is lowered for both the CPU and CUDA backends.
+Mel-conditioned
 models export with a STATIC [batch, mel_frames, M] conditioning input
 (frames sized to num_samples — the artifact's fixed-shape contract,
 round 5); variable-length vocoder traffic goes through the live
@@ -46,15 +48,15 @@ _META = "meta.json"
 def export_decoder(params, cfg: WaveNetConfig, path: str, *,
                    num_samples: int, batch: int = 1,
                    temperature: float = 1.0,
-                   platforms: Optional[tuple] = None) -> None:
+                   platforms: Optional[tuple] = ("cpu", "cuda")) -> None:
     """Serialize an AOT decode artifact to `path`.
 
     num_samples/batch/temperature are baked into the traced computation
     (static shapes — the XLA contract); the PRNG key — plus the mel
     features [batch, mel_frames, M] when cfg.mel is set, and the speaker
     id when cfg.global_classes is set — stay runtime inputs.  `platforms`
-    optionally cross-lowers for several backends (e.g. ("cpu", "tpu"));
-    default is the current backend only.
+    cross-lowers for several backends (default ("cpu", "cuda")); None
+    lowers for the current backend only.
     """
     import jax
     from jax import export as jexport

@@ -3,7 +3,7 @@
 The reference printed loss to stdout; here: structured JSONL metric streams
 (one object per logged step) consumable by any dashboard, plus rolling
 aggregates and the BASELINE-mandated throughput counters
-(audio-seconds/s/chip, samples/s).  Kept dependency-free (no TF summaries);
+(audio-seconds/s per device, samples/s).  Kept dependency-free (no TF summaries);
 the jax profiler covers traces (utils/profiling.py).
 """
 

@@ -4,7 +4,7 @@ The reference's whole `for iteration` body (SURVEY.md §3.1) becomes ONE
 jit-compiled function over the (data, seq, model) mesh; host<->device crossing
 only for the input token batch and scalar metric fetch.  Gradients are
 averaged across `data` implicitly by GSPMD (batch is sharded, loss is a mean),
-tensor-parallel reductions ride ICI per the sharding rules in
+and tensor-parallel reductions follow the sharding rules in
 parallel/sharding.py.
 """
 
@@ -19,6 +19,7 @@ import numpy as np
 import optax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+from wavenet_tpu import route
 from wavenet_tpu.audio.dataset import AudioDataset, IteratorState
 from wavenet_tpu.config import WaveNetConfig
 from wavenet_tpu.models import wavenet as wn
@@ -70,84 +71,20 @@ def make_optimizer(cfg: WaveNetConfig) -> optax.GradientTransformation:
     return tx
 
 
-def use_pipeline(cfg: WaveNetConfig) -> bool:
-    """Fused stack under model sharding = layer-pipeline (parallel/pipeline):
-    the per-chip layer-group kernels shard the LAYER axis, not channels."""
-    from wavenet_tpu.parallel import pipeline
-    return (cfg.fused_stack and cfg.model_parallel > 1
-            and cfg.seq_parallel == 1
-            and jax.default_backend() != "cpu"
-            and cfg.batch_size % max(cfg.data_parallel, 1) == 0
-            and pipeline.supported(cfg, cfg.train_window,
-                                   cfg.model_parallel))
-
-
 def make_train_step(cfg: WaveNetConfig, tx: optax.GradientTransformation,
                     mesh: Optional[Mesh] = None):
     """Build the jitted train step: (state, batch) -> (state, metrics).
 
-    When cfg.seq_parallel > 1 the loss runs through the halo-exchange
-    shard_map path (parallel/seqpar.py); `mesh` is required then.
+    The loss comes from the router (`wavenet_tpu.route.train_loss`): XLA's
+    plain path, or the halo-exchange shard_map when cfg.seq_parallel > 1
+    (`mesh` is required then).  GSPMD shards everything else.
     """
-    use_sp = cfg.seq_parallel > 1
-    if use_sp and mesh is None:
-        raise ValueError("seq_parallel > 1 requires the mesh")
-
-    # fused Pallas stack: TPU backend + fits VMEM.  model_parallel > 1 runs
-    # the fused path as a layer PIPELINE over the model axis (params layer-
-    # sharded; parallel/pipeline.py); seq_parallel > 1 runs it via
-    # OVERLAP-DISCARD (each shard halos the embedded input by the receptive
-    # field and discards the warmup outputs; parallel/seqpar.py).
-    # Under plain data parallelism the loss runs through a shard_map so the
-    # kernel sees a fully-local batch shard (parallel/dataparallel.py).
-    from wavenet_tpu.ops.pallas import train_stack
-    use_pp = use_pipeline(cfg)
-    use_sp_fused = False
-    if use_sp and cfg.fused_stack and cfg.model_parallel == 1 \
-            and jax.default_backend() != "cpu":
-        from wavenet_tpu.parallel import seqpar
-        use_sp_fused = seqpar.sp_fused_supported(cfg, cfg.train_window,
-                                                 cfg.seq_parallel)
-    use_fused = (cfg.fused_stack
-                 and not use_sp and cfg.model_parallel == 1
-                 and jax.default_backend() != "cpu"
-                 and cfg.batch_size % max(cfg.data_parallel, 1) == 0
-                 and train_stack.supported(cfg, cfg.train_window))
-    # the fused kernel is per-chip: under data parallelism the loss MUST run
-    # through the dp shard_map (a bare pallas_call inside a GSPMD-partitioned
-    # computation is not auto-partitioned) — including the conditional path
-    use_dp_map = use_fused and cfg.data_parallel > 1
+    loss_of_batch = route.train_loss(cfg, mesh)
 
     def train_step(state: TrainState, batch: Dict[str, jax.Array]
                    ) -> Tuple[TrainState, Dict[str, jax.Array]]:
-        def loss_of(p):
-            if use_pp:
-                from wavenet_tpu.parallel import pipeline
-                return pipeline.loss_fn_pp(
-                    p, cfg, mesh, batch["tokens"], mel=batch.get("mel"),
-                    speaker=batch.get("speaker"),
-                    microbatch=cfg.pipeline_microbatch)
-            if use_sp:
-                from wavenet_tpu.parallel import seqpar
-                toks = batch["tokens"]
-                sp_loss = (seqpar.loss_fn_sp_fused if use_sp_fused
-                           else seqpar.loss_fn_sp)
-                return sp_loss(p, cfg, mesh, toks[:, :-1], toks[:, 1:],
-                               mel=batch.get("mel"),
-                               speaker=batch.get("speaker"))
-            if use_dp_map:
-                from wavenet_tpu.parallel import dataparallel
-                return dataparallel.loss_fn_dp(p, cfg, mesh,
-                                               batch["tokens"],
-                                               use_fused=True,
-                                               mel=batch.get("mel"),
-                                               speaker=batch.get("speaker"))
-            return wn.loss_fn(p, cfg, batch["tokens"], mel=batch.get("mel"),
-                              speaker=batch.get("speaker"),
-                              use_fused=use_fused)
-
-        (loss, aux), grads = jax.value_and_grad(loss_of, has_aux=True)(
-            state.params)
+        (loss, aux), grads = jax.value_and_grad(loss_of_batch, has_aux=True)(
+            state.params, batch)
         updates, opt_state = tx.update(grads, state.opt_state, state.params)
         params = optax.apply_updates(state.params, updates)
         ema = state.ema
@@ -194,15 +131,11 @@ class Trainer:
         self.cfg = cfg
         self.dataset = dataset
         self.mesh = mesh if mesh is not None else make_mesh(cfg)
-        # fused pipeline (model axis shards LAYERS) vs Megatron channel
-        # sharding for the scan path — the param layout must match the step
-        self.use_pp = use_pipeline(cfg)
-        shd.validate(cfg, self.mesh, layer_sharded=self.use_pp)
+        shd.validate(cfg, self.mesh)
         self.checkpoint_dir = checkpoint_dir
         self.tx = make_optimizer(cfg)
 
-        self.param_shardings = shd.param_shardings(
-            cfg, self.mesh, layer_sharded=self.use_pp)
+        self.param_shardings = shd.param_shardings(cfg, self.mesh)
         self.batch_shardings = shd.batch_shardings(
             self.mesh, with_mel=cfg.mel is not None,
             with_speaker=cfg.global_classes is not None)
@@ -244,8 +177,7 @@ class Trainer:
         param-shaped pytrees embedded in the optax state); scalar counts
         replicate.  Matched by key-path suffix against the param spec tree."""
         shapes = jax.eval_shape(init_fn, jax.random.PRNGKey(0))
-        param_spec_tree = (shd.param_pspecs_layer(self.cfg) if self.use_pp
-                          else shd.param_pspecs(self.cfg))
+        param_spec_tree = shd.param_pspecs(self.cfg)
         flat_spec = jax.tree.flatten_with_path(
             param_spec_tree, is_leaf=lambda x: isinstance(x, P))[0]
         spec_by_path = {jax.tree_util.keystr(k): v for k, v in flat_spec}
@@ -290,9 +222,7 @@ class Trainer:
                         for k, v in batch.items()}
                 self.state, metrics = self._step(self.state, batch)
                 if i == 0:
-                    # exclude compile AND warm the device->host path (the
-                    # first readback through a remote/tunneled runtime can
-                    # cost orders of magnitude more than steady state)
+                    # exclude compile and the first device->host readback
                     jax.device_get(metrics)
                     t_start = time.perf_counter()
                     steps_timed = 0
@@ -307,8 +237,8 @@ class Trainer:
                     if metrics_fn:
                         metrics_fn(int(jax.device_get(self.state.step)), m)
                 if self.ckpt and checkpoint_every and (i + 1) % checkpoint_every == 0:
-                    # async: the loop keeps training while tensorstore
-                    # writes; orbax settles it before the NEXT save, and the
+                    # async: the loop keeps training while a background
+                    # thread writes; the next save waits for it, and the
                     # run-exit wait below makes the last one durable too
                     self.save(wait=False)
         jax.block_until_ready(self.state.params)

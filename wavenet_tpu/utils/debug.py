@@ -1,7 +1,7 @@
 """Numerics debugging / sanitizer subsystem (SURVEY.md §5.2).
 
-The reference is single-threaded Python with no sanitizers; the TPU-native
-equivalents are compiler-level: NaN trapping (jax_debug_nans), finite-ness
+The reference is single-threaded Python with no sanitizers; the
+equivalents here are compiler-level: NaN trapping (jax_debug_nans), finite-ness
 assertions compiled into the step (jax.debug + error checking), and a debug
 context that turns them all on for a scoped run.
 """
